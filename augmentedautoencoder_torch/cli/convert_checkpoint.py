@@ -1,0 +1,54 @@
+"""`convert_checkpoint` -- carry a JAX experiment's checkpoint into the port.
+
+    python -m augmentedautoencoder_torch.cli.convert_checkpoint [group/]experiment [--at_step N]
+
+Reads the newest (or the `--at_step`) orbax `chkpt-<step>/` of the
+experiment under $AE_WORKSPACE_PATH and writes `chkpt-<step>.pt` beside it
+in the same checkpoints/ directory: the encoder's state dict (BatchNorm
+statistics included), the codebook (`embedding_normalized`,
+`embed_obj_bbs`) and the step. This is the one entry point of the port that
+needs jax and orbax, and it imports them only when it runs.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Optional, Sequence
+
+
+def convert(experiment_name: str, experiment_group: str = "", at_step: Optional[int] = None) -> str:
+    """Convert one experiment's checkpoint; returns the written path."""
+    from augmentedautoencoder_tpu.training.checkpoint import CheckpointManager as JaxCheckpoints
+
+    from .. import factory
+    from ..convert import params_from_jax
+    from ..training.checkpoint import CheckpointManager
+
+    paths = factory.experiment_paths(experiment_name, experiment_group)
+    src = JaxCheckpoints(paths["checkpoint_dir"])
+    step = src.resolve_step(at_step)
+    if step is None:
+        raise FileNotFoundError(f"no chkpt-<step>/ in {paths['checkpoint_dir']}")
+    payload = src.restore(step)
+    state = params_from_jax(payload["params"], payload.get("batch_stats"))
+    return CheckpointManager(paths["checkpoint_dir"]).save(
+        step,
+        state,
+        embedding_normalized=payload.get("embedding_normalized"),
+        embed_obj_bbs=payload.get("embed_obj_bbs"),
+    )
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    from augmentedautoencoder_tpu.cli import split_experiment_name
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("experiment_name", help="[group/]experiment")
+    parser.add_argument("--at_step", type=int, default=None)
+    args = parser.parse_args(argv)
+    name, group = split_experiment_name(args.experiment_name)
+    print(f"wrote {convert(name, group, args.at_step)}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,122 @@
+"""Build the port's inference objects from experiment names
+(port of augmentedautoencoder_tpu/factory.py).
+
+Configs and workspace paths come from the JAX package's framework-neutral
+modules (`config`, `workspace`); checkpoints are the port's `.pt` files
+(training/checkpoint.py); the embedding view sphere comes from
+`data.dataset.Dataset.viewsphere_for_embedding`, whose renderer is never
+built here.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+from augmentedautoencoder_tpu import workspace as ws
+from augmentedautoencoder_tpu.config import TrainConfig, load_train_config
+from augmentedautoencoder_tpu.data.dataset import Dataset
+
+from .codebook import Codebook, normalize_uint8
+from .models import AAE
+from .training.checkpoint import CheckpointManager
+
+Device = Union[str, torch.device]
+
+
+def default_device() -> torch.device:
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def make_encode_fn(model: AAE):
+    """Deterministic encoder forward on the model's device: (B,H,W,C) float
+    in [0,1] or uint8 (normalized on the device) -> (B, latent) f32."""
+
+    @torch.inference_mode()
+    def encode(x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.uint8:
+            x = normalize_uint8(x)
+        return model.encode(x)
+
+    return encode
+
+
+def experiment_paths(experiment_name: str, experiment_group: str = ""):
+    workspace_path = ws.get_workspace_path()
+    log_dir = ws.get_log_dir(workspace_path, experiment_name, experiment_group)
+    return {
+        "workspace": workspace_path,
+        "log_dir": log_dir,
+        "checkpoint_dir": ws.get_checkpoint_dir(log_dir),
+        "dataset_path": ws.get_dataset_path(workspace_path),
+        "cfg_file": ws.get_config_file_path(workspace_path, experiment_name, experiment_group),
+        "exp_cfg_file": ws.get_train_config_exp_file_path(log_dir, experiment_name),
+    }
+
+
+def load_experiment_config(
+    experiment_name: str, experiment_group: str = "", prefer_log_dir: bool = True
+) -> Tuple[TrainConfig, dict]:
+    """The experiment cfg; the copy in the log dir wins, as in the JAX package."""
+    paths = experiment_paths(experiment_name, experiment_group)
+    cfg_path = (
+        paths["exp_cfg_file"]
+        if prefer_log_dir and os.path.exists(paths["exp_cfg_file"])
+        else paths["cfg_file"]
+    )
+    if not os.path.exists(cfg_path):
+        raise FileNotFoundError(f"config file not found: {cfg_path}")
+    return load_train_config(cfg_path), paths
+
+
+def embedding_viewsphere(cfg: TrainConfig, dataset_path: str = "") -> np.ndarray:
+    """(N, 3, 3) codebook rotations in row order (renders nothing)."""
+    return Dataset(dataset_path, cfg).viewsphere_for_embedding
+
+
+def restore_experiment(
+    experiment_name: str,
+    experiment_group: str = "",
+    at_step: Optional[int] = None,
+    device: Optional[Device] = None,
+    precision: Optional[str] = None,
+):
+    """(cfg, paths, model in eval mode on `device`, checkpoint payload)."""
+    cfg, paths = load_experiment_config(experiment_name, experiment_group)
+    payload = CheckpointManager(paths["checkpoint_dir"]).restore(at_step)
+    if payload is None:
+        raise FileNotFoundError(
+            f"No checkpoint found. Expected a chkpt-<step>.pt in:\n{paths['checkpoint_dir']}\n"
+            "(convert a JAX checkpoint with "
+            "python -m augmentedautoencoder_torch.cli.convert_checkpoint <experiment>)"
+        )
+    model = AAE.from_config(cfg, precision=precision)
+    model.load_state_dict(payload["state_dict"])
+    model.to(device or default_device()).eval()
+    return cfg, paths, model, payload
+
+
+def build_codebook_from_name(
+    experiment_name: str,
+    experiment_group: str = "",
+    at_step: Optional[int] = None,
+    device: Optional[Device] = None,
+) -> Codebook:
+    """Everything inference needs for one experiment, on `device`."""
+    device = torch.device(device) if device is not None else default_device()
+    cfg, paths, model, payload = restore_experiment(
+        experiment_name, experiment_group, at_step, device
+    )
+    viewsphere = embedding_viewsphere(cfg, paths["dataset_path"])
+    emb = payload.get("embedding_normalized")
+    bbs = payload.get("embed_obj_bbs")
+    return Codebook(
+        encode_fn=make_encode_fn(model),
+        viewsphere=viewsphere,
+        embedding_normalized=emb,
+        embed_obj_bbs=None if bbs is None else np.asarray(bbs.numpy()),
+        num_cyclo=cfg.num_cyclo,
+        device=device,
+    )

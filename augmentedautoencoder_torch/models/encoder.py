@@ -1,0 +1,82 @@
+"""Convolutional encoder (port of augmentedautoencoder_tpu/models/encoder.py).
+
+4 x (stride-2 conv -> ReLU [-> BatchNorm]) -> flatten -> linear latent, with
+the JAX package's conventions kept exactly so its weights carry over:
+
+  * SAME padding as Flax computes it: for kernel 5, stride 2 on an even
+    input that is 1 before and 2 after, not the symmetric `padding=2`;
+  * BatchNorm AFTER the ReLU (eps 1e-5, running statistics at inference);
+  * the feature map is flattened in NHWC order, so the Flax `latent`
+    kernel maps over by a plain transpose;
+  * the latent head runs in f32 even when the convs run in bf16;
+  * optional VAE head: sigma = softplus(1e-8 + Dense(x)).
+
+Inputs are NHWC floats in [0, 1], as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """(before, after) padding of Flax/XLA `padding="SAME"` on one axis."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Encoder(nn.Module):
+    def __init__(
+        self,
+        input_shape: Tuple[int, int, int] = (128, 128, 3),
+        latent_space_size: int = 128,
+        num_filters: Sequence[int] = (128, 256, 512, 512),
+        kernel_size: int = 5,
+        strides: Sequence[int] = (2, 2, 2, 2),
+        batch_norm: bool = False,
+        variational: bool = False,
+        compute_dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        h, w, c = input_shape
+        self.kernel_size = kernel_size
+        self.strides = tuple(strides)
+        self.variational = variational
+        self.compute_dtype = compute_dtype
+        self.convs = nn.ModuleList()
+        self.bns = nn.ModuleList() if batch_norm else None
+        self._pads = []
+        for filters, stride in zip(num_filters, strides):
+            self.convs.append(nn.Conv2d(c, filters, kernel_size, stride=stride))
+            if batch_norm:
+                self.bns.append(nn.BatchNorm2d(filters, eps=1e-5))
+            ph, pw = same_padding(h, kernel_size, stride), same_padding(w, kernel_size, stride)
+            self._pads.append((pw[0], pw[1], ph[0], ph[1]))
+            h, w, c = math.ceil(h / stride), math.ceil(w / stride), filters
+        flat = h * w * c
+        self.latent = nn.Linear(flat, latent_space_size)
+        self.latent_sigma = nn.Linear(flat, latent_space_size) if variational else None
+        # convs (and BN) hold their weights in the compute dtype; the
+        # latent heads stay f32
+        self.convs.to(compute_dtype)
+        if self.bns is not None:
+            self.bns.to(compute_dtype)
+
+    def forward(self, x: torch.Tensor):
+        """x: (B, H, W, C) float. Returns z (B, latent) f32, or (z, sigma)."""
+        x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
+        for i, conv in enumerate(self.convs):
+            x = F.relu(conv(F.pad(x, self._pads[i])))
+            if self.bns is not None:
+                x = self.bns[i](x)
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1).float()  # NHWC flatten
+        z = self.latent(x)
+        if not self.variational:
+            return z
+        return z, F.softplus(1e-8 + self.latent_sigma(x))

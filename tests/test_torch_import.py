@@ -1,0 +1,91 @@
+"""The port imports and serves with jax, flax, orbax and OpenCV blocked,
+and its re-homed pose interfaces match the JAX package's field for field."""
+
+import dataclasses
+import inspect
+import os
+import subprocess
+import sys
+import textwrap
+
+import torch
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SCRIPT = textwrap.dedent(
+    """
+    import os, pkgutil, sys, importlib
+    for m in ("jax", "jaxlib", "flax", "orbax", "orbax.checkpoint", "optax", "cv2"):
+        sys.modules[m] = None
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    import augmentedautoencoder_torch as pkg
+    names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+    for name in names:
+        importlib.import_module(name)
+    sys.path.insert(0, os.path.join({repo!r}, "tests"))
+    from _torch_port_ws import TINY_CFG, make_frames, write_test_cfg
+    from augmentedautoencoder_tpu import workspace as ws
+    from augmentedautoencoder_torch.models import AAE
+    from augmentedautoencoder_torch.training.checkpoint import CheckpointManager
+    from augmentedautoencoder_torch import factory
+    from augmentedautoencoder_torch.serving import PoseServer
+
+    root = sys.argv[1]
+    os.environ["AE_WORKSPACE_PATH"] = root
+    ws.init_workspace(root)
+    with open(ws.get_config_file_path(root, "obj"), "w") as fh:
+        fh.write(TINY_CFG)
+    cfg, paths = factory.load_experiment_config("obj")
+    torch.manual_seed(0)
+    model = AAE.from_config(cfg)
+    from augmentedautoencoder_tpu.geometry import view_sampler
+    n = len(view_sampler.viewsphere_rotations(cfg.min_n_views, cfg.num_cyclo, cfg.radius))
+    rng = np.random.RandomState(0)
+    emb = rng.randn(n, 16).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    bbs = np.tile(np.array([[50, 30, 28, 36]], np.int32), (n, 1))
+    CheckpointManager(paths["checkpoint_dir"]).save(5, model.state_dict(), emb, bbs)
+    server = PoseServer(write_test_cfg(os.path.join(root, "t.cfg"), {{"c": "obj"}}),
+                        max_dets_per_class=2, device="cpu")
+    out = server.process(**make_frames(["c"], 1, 3, seed=0)[0])
+    assert len(out) == 3 and all(np.isfinite(p.trafo).all() for p in out)
+    blocked = [m for m in ("jax", "flax", "orbax", "cv2") if sys.modules.get(m) is not None]
+    assert not blocked, blocked
+    print("OK", len(names))
+    """
+)
+
+
+def test_port_imports_and_serves_without_jax_flax_orbax_cv2(tmp_path):
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCRIPT.format(repo=REPO), str(tmp_path / "ws")],
+        capture_output=True, text=True, env=env, timeout=300, cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().startswith("OK")
+
+
+def test_interfaces_match_jax_package():
+    from augmentedautoencoder_tpu.pose import interfaces as jint
+    from augmentedautoencoder_torch.pose import interfaces as tint
+
+    for name in ("Roi3D", "PoseEstimate", "BoundingBox"):
+        want = [(f.name, f.type, f.default) for f in dataclasses.fields(getattr(jint, name))]
+        got = [(f.name, f.type, f.default) for f in dataclasses.fields(getattr(tint, name))]
+        assert got == want, name
+    for name in ("PoseEstInterface", "BoundingBoxDetector"):
+        want = {k for k, v in vars(getattr(jint, name)).items() if callable(v) or isinstance(v, staticmethod)}
+        got = {k for k, v in vars(getattr(tint, name)).items() if callable(v) or isinstance(v, staticmethod)}
+        assert got == want, name
+        assert getattr(getattr(tint, name), "__abstractmethods__") == getattr(
+            getattr(jint, name), "__abstractmethods__"
+        )
+    box = tint.BoundingBox(0.1, 0.2, 0.5, 0.9, {"a": 0.2, "b": 0.7})
+    jbox = jint.BoundingBox(0.1, 0.2, 0.5, 0.9, {"a": 0.2, "b": 0.7})
+    assert box.best_class == jbox.best_class and box.to_xywh(640, 480) == jbox.to_xywh(640, 480)
+    assert inspect.signature(tint.PoseEstInterface.process) == inspect.signature(jint.PoseEstInterface.process)
