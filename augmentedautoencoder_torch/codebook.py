@@ -15,11 +15,8 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-from augmentedautoencoder_tpu.geometry.transform import (
-    matrices_from_quaternions,
-    quaternions_from_matrices,
-)
 
+from .geometry.transform import matrices_from_quaternions, quaternions_from_matrices
 from .ops.nn_query import cosine_top1, cosine_topk, l2_normalize
 
 EncodeFn = Callable[[torch.Tensor], torch.Tensor]  # (B,H,W,C) float in [0,1] -> (B, latent)
@@ -80,7 +77,8 @@ def aggregate_candidates(
 
 
 class Codebook:
-    """A per-object codebook bound to an encoder, resident on `device`."""
+    """A per-object codebook bound to an encoder, resident on `device`
+    (default: the GPU; `factory.default_device` raises without CUDA)."""
 
     def __init__(
         self,
@@ -89,10 +87,12 @@ class Codebook:
         embedding_normalized=None,  # (N, latent)
         embed_obj_bbs: Optional[np.ndarray] = None,  # (N, 4)
         num_cyclo: int = 36,
-        device: Union[str, torch.device] = "cpu",
+        device: Optional[Union[str, torch.device]] = None,
     ):
+        from .factory import default_device  # factory imports this module
+
         self._encode = encode_fn
-        self.device = torch.device(device)
+        self.device = torch.device(device) if device is not None else default_device()
         self.viewsphere = np.asarray(viewsphere)
         self.num_cyclo = int(num_cyclo)
         self.embedding_normalized = (

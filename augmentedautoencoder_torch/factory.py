@@ -1,11 +1,13 @@
 """Build the port's inference objects from experiment names
 (port of augmentedautoencoder_tpu/factory.py).
 
-Configs and workspace paths come from the JAX package's framework-neutral
-modules (`config`, `workspace`); checkpoints are the port's `.pt` files
-(training/checkpoint.py); the embedding view sphere comes from
-`data.dataset.Dataset.viewsphere_for_embedding`, whose renderer is never
-built here.
+Configs and workspace paths come from the port's copies of the JAX
+package's framework-neutral modules (`config`, `workspace`); checkpoints
+are the port's `.pt` files (training/checkpoint.py); the embedding view
+sphere is `geometry.view_sampler.viewsphere_rotations`, as the JAX
+package's `Dataset.viewsphere_for_embedding` computes it.
+
+Entry points run on the GPU unless the caller passes `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -15,11 +17,11 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
-from augmentedautoencoder_tpu import workspace as ws
-from augmentedautoencoder_tpu.config import TrainConfig, load_train_config
-from augmentedautoencoder_tpu.data.dataset import Dataset
 
+from . import workspace as ws
 from .codebook import Codebook, normalize_uint8
+from .config import TrainConfig, load_train_config
+from .geometry import view_sampler
 from .models import AAE
 from .training.checkpoint import CheckpointManager
 
@@ -27,7 +29,14 @@ Device = Union[str, torch.device]
 
 
 def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The device of an entry point given none: the GPU. Without CUDA this
+    raises instead of serving on the CPU behind the caller's back."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "augmentedautoencoder_torch runs on a CUDA device and none is available; "
+            'pass device="cpu" to run on the CPU'
+        )
+    return torch.device("cuda")
 
 
 def make_encode_fn(model: AAE):
@@ -71,9 +80,9 @@ def load_experiment_config(
     return load_train_config(cfg_path), paths
 
 
-def embedding_viewsphere(cfg: TrainConfig, dataset_path: str = "") -> np.ndarray:
+def embedding_viewsphere(cfg: TrainConfig) -> np.ndarray:
     """(N, 3, 3) codebook rotations in row order (renders nothing)."""
-    return Dataset(dataset_path, cfg).viewsphere_for_embedding
+    return view_sampler.viewsphere_rotations(cfg.min_n_views, cfg.num_cyclo, cfg.radius)
 
 
 def restore_experiment(
@@ -90,7 +99,7 @@ def restore_experiment(
         raise FileNotFoundError(
             f"No checkpoint found. Expected a chkpt-<step>.pt in:\n{paths['checkpoint_dir']}\n"
             "(convert a JAX checkpoint with "
-            "python -m augmentedautoencoder_torch.cli.convert_checkpoint <experiment>)"
+            "python scripts/convert_jax_checkpoint.py <experiment>)"
         )
     model = AAE.from_config(cfg, precision=precision)
     model.load_state_dict(payload["state_dict"])
@@ -109,7 +118,7 @@ def build_codebook_from_name(
     cfg, paths, model, payload = restore_experiment(
         experiment_name, experiment_group, at_step, device
     )
-    viewsphere = embedding_viewsphere(cfg, paths["dataset_path"])
+    viewsphere = embedding_viewsphere(cfg)
     emb = payload.get("embedding_normalized")
     bbs = payload.get("embed_obj_bbs")
     return Codebook(

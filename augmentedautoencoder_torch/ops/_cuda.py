@@ -1,6 +1,7 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-The sources are `augmentedautoencoder_torch/csrc/*.cu`. On first use they
+The sources are `augmentedautoencoder_torch/csrc/*.cu` (codebook_query.cu:
+the codebook top-k; icp_nn.cu: the ICP nearest neighbour). On first use they
 are compiled by `nvcc` for Hopper (sm_90a), one process per source, all
 started together, and linked into one shared library with a plain C
 interface under `build/aae_torch_kernels/<hash of the sources>/`. The
@@ -123,6 +124,8 @@ def lib() -> ctypes.CDLL:
                 p, p, p, p, p,
             ]
             handle.aae_codebook_topk.restype = i32
+            handle.aae_batched_nn_min.argtypes = [p, p, i32, i32, p, p, p]
+            handle.aae_batched_nn_min.restype = i32
             handle.aae_cuda_error_string.argtypes = [i32]
             handle.aae_cuda_error_string.restype = ctypes.c_char_p
             _lib = handle
@@ -198,3 +201,33 @@ def codebook_topk(
     )
     _check(rc, "aae_codebook_topk launch")
     return out_v, out_i
+
+
+def batched_nn_min(src: torch.Tensor, dst: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch csrc/icp_nn.cu on the current stream.
+
+    src: (n, N, 3) f32, the centred source points times -2; dst: (n, N, 4)
+    f32 rows (x, y, z, |d|^2) of the centred destination points; both
+    contiguous on one CUDA device. Returns (min (n, N) f32, argmin (n, N)
+    int32) of ((sx*dx + sy*dy) + sz*dz) + |d|^2 over each lane's points,
+    ties to the lowest index. Does not synchronise.
+    """
+    if src.device.type != "cuda" or dst.device != src.device:
+        raise ValueError(f"batched_nn_min needs CUDA tensors on one device, got {src.device}, {dst.device}")
+    if src.dtype != torch.float32 or dst.dtype != torch.float32:
+        raise ValueError(f"batched_nn_min takes f32 (src {src.dtype}, dst {dst.dtype})")
+    if src.dim() != 3 or src.shape[2] != 3 or dst.shape != (src.shape[0], src.shape[1], 4):
+        raise ValueError(f"bad shapes src {tuple(src.shape)} dst {tuple(dst.shape)}")
+    if not (src.is_contiguous() and dst.is_contiguous()) or dst.data_ptr() % 16:
+        raise ValueError("batched_nn_min needs contiguous tensors and a 16-byte aligned dst")
+    n, N = src.shape[0], src.shape[1]
+    out_min = torch.empty((n, N), dtype=torch.float32, device=src.device)
+    out_idx = torch.empty((n, N), dtype=torch.int32, device=src.device)
+    if n == 0 or N == 0:
+        return out_min, out_idx
+    rc = lib().aae_batched_nn_min(
+        src.data_ptr(), dst.data_ptr(), n, N, out_min.data_ptr(), out_idx.data_ptr(),
+        torch.cuda.current_stream(src.device).cuda_stream,
+    )
+    _check(rc, "aae_batched_nn_min launch")
+    return out_min, out_idx

@@ -6,9 +6,12 @@ color_img, camK)` returns 4x4 `PoseEstimate`s in meters (mm with mm=True),
 optionally transformed by camPose. Detections are grouped by class, and
 each class's crops run through one batched encode and one codebook query.
 
-The depth stages (`use_icp`, `topk_rescore` with a depth image) are not
-ported yet (ROADMAP queue A item 6 and queue B item 4): given a depth image
-with either configured, `process` raises NotImplementedError.
+With a depth image (in the meshes' units, mm), `topk_rescore > 1` expands
+the top-k matches into 6D hypotheses and keeps the one whose rendered
+depth best explains the frame (pose/rescore.py), and `use_icp` refines
+every pose with the 3-stage ICP (pose/icp.py; `icp_frame_accurate` for the
+frame-accurate cloud geometry). Both render each class's `MODEL_PATH` mesh
+with the host C++ rasterizer.
 """
 
 from __future__ import annotations
@@ -17,12 +20,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from augmentedautoencoder_tpu.cli import split_experiment_name
-from augmentedautoencoder_tpu.config import safe_eval
 
 from .. import factory
+from ..cli import split_experiment_name
+from ..config import safe_eval
 from ..codebook import tta_jittered_bboxes
 from .interfaces import BoundingBox, PoseEstimate, PoseEstInterface, Roi3D
+from .rescore import select_best_hypothesis
 
 _COEF_BITS = 11  # cv::resize INTER_LINEAR 8u: 11-bit fixed-point weights
 _COEF_ONE = 1 << _COEF_BITS
@@ -110,17 +114,27 @@ def extract_square_patch_centered(
     return resize_linear_u8(scene_crop, tuple(resize))
 
 
-def depth_stage_refusal(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} with a depth image is not ported to augmentedautoencoder_torch yet "
-        "(ROADMAP queue A item 6: ICP and depth re-scoring, with queue B item 4 "
-        "batched_nn_pallas); serve without depth_img or use augmentedautoencoder_tpu"
-    )
+def depth_crops_of(depth_img: np.ndarray, box_xywhs, pad_factor: float, frame_hw):
+    """Square bbox-centred, un-resized depth crops (the geometry ICP's K
+    re-centring assumes), clipped to the (H, W) frame, and each crop's
+    (left, top)."""
+    H, W = frame_hw
+    crops, offsets = [], []
+    for xywh in box_xywhs:
+        x, y, w, h = (int(v) for v in xywh)
+        size = int(max(h, w) * pad_factor)
+        left = max(int(x + w / 2 - size / 2), 0)
+        right = min(int(x + w / 2 + size / 2), W)
+        top = max(int(y + h / 2 - size / 2), 0)
+        bottom = min(int(y + h / 2 + size / 2), H)
+        crops.append(depth_img[top:bottom, left:right])
+        offsets.append((left, top))
+    return crops, offsets
 
 
 class AePoseEstimator(PoseEstInterface):
     """Many per-object codebooks behind one `process` call, on `device`
-    (default: the GPU when there is one, else the CPU)."""
+    (default: the GPU; without CUDA pass device="cpu")."""
 
     def __init__(self, test_config_path, device=None):
         test_args = self.get_params(test_config_path)
@@ -145,6 +159,7 @@ class AePoseEstimator(PoseEstInterface):
         self._icp_frame_accurate = test_args.getboolean(
             "auto_pose", "icp_frame_accurate", fallback=False
         )
+        self._icp = None
 
         self._process_requirements = ["color_img", "camK", "bboxes"]
         if self._use_icp or self._topk_rescore > 1:
@@ -180,14 +195,20 @@ class AePoseEstimator(PoseEstInterface):
                 experiment_name, experiment_group, device=self.device
             )
 
-    def check_depth_stages(self, depth_img) -> None:
-        """Refuse the depth stages this port does not have yet."""
-        if depth_img is None:
-            return
-        if self._use_icp:
-            raise depth_stage_refusal("use_icp")
-        if self._topk_rescore > 1:
-            raise depth_stage_refusal("topk_rescore")
+    def _icp_handle(self):
+        """Lazy per-class ICP: each class's mesh in the native rasterizer
+        (a failed build raises), the loop on this estimator's device."""
+        if self._icp is None:
+            from ..renderer import Renderer
+            from ..renderer.mesh import load_mesh
+            from .icp import ICP, SynRenderer
+
+            renderers = {}
+            for class_name, cfg in self.all_train_cfgs.items():
+                mesh = load_mesh(cfg.model_path, vertex_scale=cfg.vertex_scale)
+                renderers[class_name] = SynRenderer(Renderer([], backend="native", meshes=[mesh]))
+            self._icp = ICP(renderers, device=self.device)
+        return self._icp
 
     # ------------------------------------------------------------- contract
     def set_parameter(self, string_name: str, string_val: str) -> None:
@@ -210,7 +231,6 @@ class AePoseEstimator(PoseEstInterface):
         rois3ds: Sequence[Roi3D] = (),
         mm: bool = False,
     ) -> List[PoseEstimate]:
-        self.check_depth_stages(depth_img)
         H, W = color_img.shape[:2]
 
         by_class: Dict[str, List[int]] = {}
@@ -252,10 +272,42 @@ class AePoseEstimator(PoseEstInterface):
                 ]
             )
             bbs = np.stack([box_xywhs[j] for j in det_idcs])
-            Rs, ts, _ = self.all_codebooks[class_name].auto_pose6d_batch(
-                crops, bbs, camK, cfg, upright=self._upright,
-                topk_aggregate=self._topk_aggregate, tta=tta,
-            )
+            codebook = self.all_codebooks[class_name]
+            sel_idcs = None
+            if self._topk_rescore > 1 and depth_img is not None:
+                idcs_k, _ = codebook.topk_candidates(
+                    crops, self._topk_rescore, upright=self._upright, tta=tta
+                )
+                B, k = idcs_k.shape
+                Rs_f, ts_f = codebook.pose6d_from_indices(idcs_k, bbs, camK, cfg)
+                best, _ = select_best_hypothesis(
+                    self._icp_handle().renderers[class_name].renderer,
+                    camK, (W, H), depth_img,
+                    Rs_f.reshape(B, k, 3, 3), ts_f.reshape(B, k, 3),
+                    tau=self._rescore_tau,
+                )
+                rows = np.arange(B)
+                Rs = Rs_f.reshape(B, k, 3, 3)[rows, best]
+                ts = ts_f.reshape(B, k, 3)[rows, best]
+                sel_idcs = idcs_k[rows, best]
+            else:
+                Rs, ts, _ = codebook.auto_pose6d_batch(
+                    crops, bbs, camK, cfg, upright=self._upright,
+                    topk_aggregate=self._topk_aggregate, tta=tta,
+                )
+            if self._use_icp and depth_img is not None:
+                depth_crops, crop_offsets = depth_crops_of(
+                    depth_img, [box_xywhs[j] for j in det_idcs], self.pad_factors[class_name], (H, W)
+                )
+                Rs, ts = self._icp_handle().refine_batch(
+                    depth_crops, Rs, ts, camK, (W, H), class_name=class_name,
+                    codebook=codebook,
+                    det_imgs=crops,  # the full (B*tta) detection-major stack
+                    det_bbs=bbs, train_cfg=cfg, upright=self._upright,
+                    topk_aggregate=self._topk_aggregate, tta=tta,
+                    fixed_idcs=sel_idcs,
+                    crop_offsets=crop_offsets if self._icp_frame_accurate else None,
+                )
             for k, j in enumerate(det_idcs):
                 H_est = np.eye(4)
                 H_est[:3, :3] = Rs[k]

@@ -17,9 +17,15 @@
     pose math overlaps frame n+1's crops and dispatch, results in order.
 
 bf16 precision runs the convs in bf16 with the f32 latent head, stores the
-slab in bf16 and accumulates the cosines in f32. The depth stages
-(`use_icp`, `topk_rescore` with a depth image) are not ported yet and are
-refused with NotImplementedError.
+slab in bf16 and accumulates the cosines in f32.
+
+With a depth image, retrieve() also runs the depth stages of the test
+config: `topk_rescore` picks among the submit-time top-k by rendered depth
+(pose/rescore.py), and `use_icp` refines each class's poses with one
+batched 3-stage ICP (pose/icp.py; the correspondence step is the CUDA
+kernel csrc/icp_nn.cu). ICP's stage 2 re-uses the submit-time candidates
+instead of encoding the crops again. Under `profile=True` that stage is
+timed as `icp`.
 """
 
 from __future__ import annotations
@@ -31,9 +37,9 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
-from augmentedautoencoder_tpu.cli import split_experiment_name
 
 from . import factory
+from .cli import split_experiment_name
 from .codebook import aggregate_candidates
 from .ops.multi_codebook import (
     grouped_codebook_top1,
@@ -41,8 +47,9 @@ from .ops.multi_codebook import (
     grouped_codebook_topk_plain,
     stack_codebooks,
 )
-from .pose.estimator import AePoseEstimator, extract_square_patch_centered
+from .pose.estimator import AePoseEstimator, depth_crops_of, extract_square_patch_centered
 from .pose.interfaces import BoundingBox, PoseEstimate
+from .pose.rescore import select_best_hypothesis
 
 _SLAB_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -63,6 +70,7 @@ class _FrameHandle:
     camK: np.ndarray
     camPose: Optional[np.ndarray]
     mm: bool
+    depth_img: Optional[np.ndarray]  # kept only when a depth stage will read it
 
 
 class PoseServer:
@@ -195,7 +203,6 @@ class PoseServer:
     ) -> _FrameHandle:
         """Crop + dispatch one frame; returns a handle without waiting for
         the device."""
-        self._est.check_depth_stages(depth_img)
         H, W = color_img.shape[:2]
         by_class: Dict[str, List[int]] = {}
         box_xywhs: List[Optional[List[float]]] = []
@@ -211,6 +218,9 @@ class PoseServer:
             box_xywhs.append(xywh)
             by_class.setdefault(cls, []).append(j)
 
+        want_depth = depth_img is not None and (
+            self._est._use_icp or self._est._topk_rescore > 1
+        )
         vals: Dict[str, List[torch.Tensor]] = {}
         idcs: Dict[str, List[torch.Tensor]] = {}
         prof = self._stage_timer()
@@ -250,7 +260,7 @@ class PoseServer:
         return _FrameHandle(
             vals=vals, idcs=idcs, ready=ready, by_class=by_class,
             box_xywhs=box_xywhs, bboxes=bboxes, camK=np.asarray(camK, np.float64),
-            camPose=camPose, mm=mm,
+            camPose=camPose, mm=mm, depth_img=depth_img if want_depth else None,
         )
 
     # --------------------------------------------------------------- retrieve
@@ -272,15 +282,55 @@ class PoseServer:
             cfg = self._est.all_train_cfgs[cls]
             cb = self._est.all_codebooks[cls]
             pred_bbs = np.stack([h.box_xywhs[j] for j in det_idcs]).astype(np.float64)
+            fixed_idcs = None
             with prof("pose_math"):
                 if self._est._topk_aggregate > 1:
                     R0, rendered_bbs, _ = aggregate_candidates(
                         cb.viewsphere, cb.embed_obj_bbs, cls_idcs, cls_vals
                     )
                     Rs_cls, ts_cls = cb._solve_6d(R0, rendered_bbs, pred_bbs, h.camK, cfg)
+                elif self._est._topk_rescore > 1 and h.depth_img is not None:
+                    # expand all candidates, keep the best depth match
+                    k = cls_idcs.shape[1]
+                    Rs_f, ts_f = cb.pose6d_from_indices(cls_idcs, pred_bbs, h.camK, cfg)
+                    Hd, Wd = h.depth_img.shape[:2]
+                    best, _ = select_best_hypothesis(
+                        self._est._icp_handle().renderers[cls].renderer,
+                        h.camK, (Wd, Hd), h.depth_img,
+                        Rs_f.reshape(n, k, 3, 3), ts_f.reshape(n, k, 3),
+                        tau=self._est._rescore_tau,
+                    )
+                    rows = np.arange(n)
+                    Rs_cls = Rs_f.reshape(n, k, 3, 3)[rows, best]
+                    ts_cls = ts_f.reshape(n, k, 3)[rows, best]
+                    fixed_idcs = cls_idcs[rows, best]
                 else:
                     idcs_1 = cls_idcs[:, 0] if cls_idcs.ndim == 2 else cls_idcs
                     Rs_cls, ts_cls = cb.pose6d_from_indices(idcs_1, pred_bbs, h.camK, cfg)
+
+            if h.depth_img is not None and self._est._use_icp:
+                with prof("icp"):
+                    depth_crops, crop_offsets = depth_crops_of(
+                        h.depth_img, [h.box_xywhs[j] for j in det_idcs],
+                        self._est.pad_factors[cls], h.depth_img.shape[:2],
+                    )
+                    # stage 2 re-uses the submit-time query: the encoder is
+                    # deterministic, so encoding the same crops again would
+                    # return exactly these candidates
+                    if self._est._topk_aggregate > 1:
+                        stage2, fixed = (cls_idcs, cls_vals), None
+                    elif fixed_idcs is not None:
+                        stage2, fixed = None, fixed_idcs
+                    else:
+                        stage2, fixed = None, cls_idcs[:, 0] if cls_idcs.ndim == 2 else cls_idcs
+                    Rs_cls, ts_cls = self._est._icp_handle().refine_batch(
+                        depth_crops, list(Rs_cls), list(ts_cls), h.camK,
+                        h.depth_img.shape[:2][::-1], class_name=cls, codebook=cb,
+                        det_bbs=pred_bbs, train_cfg=cfg, upright=self._est._upright,
+                        topk_aggregate=self._est._topk_aggregate,
+                        fixed_idcs=fixed, stage2_candidates=stage2,
+                        crop_offsets=crop_offsets if self._est._icp_frame_accurate else None,
+                    )
 
             for k, j in enumerate(det_idcs):
                 H_est = np.eye(4)

@@ -1,8 +1,8 @@
 """The port's checkpoint: one `chkpt-<step>.pt` per step.
 
 Layout under <log_dir>/checkpoints/, beside the JAX package's orbax
-`chkpt-<step>/` directories (cli/convert_checkpoint.py writes one from the
-other):
+`chkpt-<step>/` directories (scripts/convert_jax_checkpoint.py writes one
+from the other):
 
     chkpt-<step>.pt   a dict of tensors, loadable with weights_only=True:
       params                 the AAE state dict's learnable tensors

@@ -1,28 +1,35 @@
-"""`convert_checkpoint` -- carry a JAX experiment's checkpoint into the port.
+#!/usr/bin/env python3
+"""Carry a JAX experiment's checkpoint into the PyTorch port.
 
-    python -m augmentedautoencoder_torch.cli.convert_checkpoint [group/]experiment [--at_step N]
+    python scripts/convert_jax_checkpoint.py [group/]experiment [--at_step N]
 
 Reads the newest (or the `--at_step`) orbax `chkpt-<step>/` of the
 experiment under $AE_WORKSPACE_PATH and writes `chkpt-<step>.pt` beside it
 in the same checkpoints/ directory: the encoder's state dict (BatchNorm
 statistics included), the codebook (`embedding_normalized`,
-`embed_obj_bbs`) and the step. This is the one entry point of the port that
-needs jax and orbax, and it imports them only when it runs.
+`embed_obj_bbs`) and the step. Restoring an orbax checkpoint needs jax, so
+this script imports both packages and stays outside the port, which
+imports neither jax nor augmentedautoencoder_tpu.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 from typing import Optional, Sequence
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from augmentedautoencoder_torch import factory  # noqa: E402
+from augmentedautoencoder_torch.cli import split_experiment_name  # noqa: E402
+from augmentedautoencoder_torch.convert import params_from_jax  # noqa: E402
+from augmentedautoencoder_torch.training.checkpoint import CheckpointManager  # noqa: E402
 
 
 def convert(experiment_name: str, experiment_group: str = "", at_step: Optional[int] = None) -> str:
     """Convert one experiment's checkpoint; returns the written path."""
     from augmentedautoencoder_tpu.training.checkpoint import CheckpointManager as JaxCheckpoints
-
-    from .. import factory
-    from ..convert import params_from_jax
-    from ..training.checkpoint import CheckpointManager
 
     paths = factory.experiment_paths(experiment_name, experiment_group)
     src = JaxCheckpoints(paths["checkpoint_dir"])
@@ -40,8 +47,6 @@ def convert(experiment_name: str, experiment_group: str = "", at_step: Optional[
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
-    from augmentedautoencoder_tpu.cli import split_experiment_name
-
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("experiment_name", help="[group/]experiment")
     parser.add_argument("--at_step", type=int, default=None)

@@ -1,13 +1,26 @@
 """Workspace fixtures for the PyTorch port's tests, built without rendering
 or training: cfgs at a tiny width, encoder params from the Flax `AAE.init`
 with a fixed key, a seeded codebook saved through the JAX package's
-CheckpointManager, and the port's checkpoint written by its converter.
+CheckpointManager, and the port's checkpoint written by
+scripts/convert_jax_checkpoint.py.
 """
 
+import importlib.util
 import os
 import textwrap
 
 import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def load_converter():
+    """scripts/convert_jax_checkpoint.py as a module (scripts/ is no package)."""
+    path = os.path.join(REPO, "scripts", "convert_jax_checkpoint.py")
+    spec = importlib.util.spec_from_file_location("convert_jax_checkpoint", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 TINY_CFG = textwrap.dedent(
     """
@@ -92,10 +105,20 @@ def write_test_cfg(path, classes, extra=""):
     return str(path)
 
 
-def make_jax_workspace(ws_path, experiments, step=10):
+def write_procedural_mesh(path, subdivisions=2, radius=45.0):
+    """A textured asymmetric .ply (the port's procedural copy) at `path`."""
+    from augmentedautoencoder_torch.renderer.procedural import make_textured_asymmetric, save_ply
+
+    save_ply(make_textured_asymmetric(subdivisions=subdivisions, radius=radius), str(path))
+    return str(path)
+
+
+def make_jax_workspace(ws_path, experiments, step=10, model_path=None, cfg_text=None):
     """Create `experiments` (name -> seed) with Flax params and a seeded
-    codebook in JAX checkpoints, then convert each with the port's CLI.
-    Sets AE_WORKSPACE_PATH."""
+    codebook in JAX checkpoints, then convert each with
+    scripts/convert_jax_checkpoint.py. `model_path` replaces the cfg's
+    MODEL_PATH (the mesh the depth stages render); `cfg_text` replaces
+    TINY_CFG. Sets AE_WORKSPACE_PATH."""
     import jax
     import jax.numpy as jnp
 
@@ -104,14 +127,17 @@ def make_jax_workspace(ws_path, experiments, step=10):
     from augmentedautoencoder_tpu.geometry import view_sampler
     from augmentedautoencoder_tpu.models import AAE
     from augmentedautoencoder_tpu.training.checkpoint import CheckpointManager
-    from augmentedautoencoder_torch.cli import convert_checkpoint
 
+    converter = load_converter()
+    text = TINY_CFG if cfg_text is None else cfg_text
+    if model_path is not None:
+        text = text.replace("MODEL_PATH: /nonexistent/model.ply", f"MODEL_PATH: {model_path}")
     os.environ[ws.WORKSPACE_ENV_VAR] = str(ws_path)
     ws.init_workspace(str(ws_path))
     for name, seed in experiments.items():
         cfg_path = ws.get_config_file_path(str(ws_path), name)
         with open(cfg_path, "w") as fh:
-            fh.write(TINY_CFG)
+            fh.write(text)
         cfg = load_train_config(cfg_path)
         model = AAE.from_config(cfg)
         x = jnp.zeros((1,) + cfg.shape)
@@ -133,7 +159,7 @@ def make_jax_workspace(ws_path, experiments, step=10):
                 "embed_obj_bbs": bbs,
             },
         )
-        convert_checkpoint.main([name])
+        converter.main([name])
     return str(ws_path)
 
 

@@ -1,6 +1,9 @@
-"""The port imports and serves with jax, flax, orbax and OpenCV blocked,
-and its re-homed pose interfaces match the JAX package's field for field."""
+"""The port imports and serves with jax, flax, orbax, OpenCV and the JAX
+package itself blocked; no module of the port imports jax or the JAX
+package; its entry points refuse to fall back to the CPU; and its re-homed
+pose interfaces match the JAX package's field for field."""
 
+import ast
 import dataclasses
 import inspect
 import os
@@ -8,6 +11,7 @@ import subprocess
 import sys
 import textwrap
 
+import pytest
 import torch
 
 torch.set_num_threads(1)
@@ -17,7 +21,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SCRIPT = textwrap.dedent(
     """
     import os, pkgutil, sys, importlib
-    for m in ("jax", "jaxlib", "flax", "orbax", "orbax.checkpoint", "optax", "cv2"):
+    for m in ("jax", "jaxlib", "flax", "orbax", "orbax.checkpoint", "optax", "cv2",
+              "augmentedautoencoder_tpu"):
         sys.modules[m] = None
     import numpy as np
     import torch
@@ -28,7 +33,7 @@ _SCRIPT = textwrap.dedent(
         importlib.import_module(name)
     sys.path.insert(0, os.path.join({repo!r}, "tests"))
     from _torch_port_ws import TINY_CFG, make_frames, write_test_cfg
-    from augmentedautoencoder_tpu import workspace as ws
+    from augmentedautoencoder_torch import workspace as ws
     from augmentedautoencoder_torch.models import AAE
     from augmentedautoencoder_torch.training.checkpoint import CheckpointManager
     from augmentedautoencoder_torch import factory
@@ -42,7 +47,7 @@ _SCRIPT = textwrap.dedent(
     cfg, paths = factory.load_experiment_config("obj")
     torch.manual_seed(0)
     model = AAE.from_config(cfg)
-    from augmentedautoencoder_tpu.geometry import view_sampler
+    from augmentedautoencoder_torch.geometry import view_sampler
     n = len(view_sampler.viewsphere_rotations(cfg.min_n_views, cfg.num_cyclo, cfg.radius))
     rng = np.random.RandomState(0)
     emb = rng.randn(n, 16).astype(np.float32)
@@ -53,7 +58,8 @@ _SCRIPT = textwrap.dedent(
                         max_dets_per_class=2, device="cpu")
     out = server.process(**make_frames(["c"], 1, 3, seed=0)[0])
     assert len(out) == 3 and all(np.isfinite(p.trafo).all() for p in out)
-    blocked = [m for m in ("jax", "flax", "orbax", "cv2") if sys.modules.get(m) is not None]
+    blocked = [m for m in ("jax", "flax", "orbax", "cv2", "augmentedautoencoder_tpu")
+               if sys.modules.get(m) is not None]
     assert not blocked, blocked
     print("OK", len(names))
     """
@@ -61,6 +67,7 @@ _SCRIPT = textwrap.dedent(
 
 
 def test_port_imports_and_serves_without_jax_flax_orbax_cv2(tmp_path):
+    """Also without the JAX package: the port keeps its own copies."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-c", _SCRIPT.format(repo=REPO), str(tmp_path / "ws")],
@@ -89,3 +96,48 @@ def test_interfaces_match_jax_package():
     jbox = jint.BoundingBox(0.1, 0.2, 0.5, 0.9, {"a": 0.2, "b": 0.7})
     assert box.best_class == jbox.best_class and box.to_xywh(640, 480) == jbox.to_xywh(640, 480)
     assert inspect.signature(tint.PoseEstInterface.process) == inspect.signature(jint.PoseEstInterface.process)
+
+
+def _imported_modules(path):
+    """Absolute module names that `path` imports (relative imports resolved)."""
+    package = os.path.relpath(path, REPO)[: -len(".py")].split(os.sep)[:-1]
+    names = []
+    for node in ast.walk(ast.parse(open(path).read(), filename=path)):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = package[: len(package) - node.level + 1] if node.level else []
+            names.append(".".join(base + ([node.module] if node.module else [])))
+    return names
+
+
+@pytest.mark.parametrize("root", ["augmentedautoencoder_torch", "chip_smoke.py"])
+def test_no_port_module_imports_jax_or_the_jax_package(root):
+    top = os.path.join(REPO, root)
+    files = [top] if top.endswith(".py") else [
+        os.path.join(d, f) for d, _, fs in os.walk(top) for f in fs if f.endswith(".py")
+    ]
+    assert len(files) >= (1 if top.endswith(".py") else 30)
+    bad = [
+        (os.path.relpath(f, REPO), name)
+        for f in files
+        for name in _imported_modules(f)
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "augmentedautoencoder_tpu")
+    ]
+    assert not bad, bad
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    from augmentedautoencoder_torch import factory
+    from augmentedautoencoder_torch.codebook import Codebook
+    from augmentedautoencoder_torch.pose.icp import ICP
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        factory.default_device()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Codebook(None, [], None)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ICP({})
+    assert Codebook(None, [], None, device="cpu").device.type == "cpu"
+    assert ICP({}, device="cpu").device.type == "cpu"

@@ -2,7 +2,7 @@
 
 The workspace is built without rendering or training (_torch_port_ws.py):
 Flax params from a fixed key, a seeded codebook in a JAX checkpoint, and
-the port's checkpoint written by `convert_checkpoint`. Both packages then
+the port's checkpoint written by scripts/convert_jax_checkpoint.py. Both packages then
 serve the same frames on the CPU. Codebook indices must agree exactly, so
 the trafos agree to f32 rounding: atol 1e-5.
 """
@@ -143,6 +143,9 @@ def test_server_matches_estimator_and_skips_unknown_classes(ws):
 
 @pytest.mark.parametrize("extra", ["use_icp = True\n", "topk_rescore = 4\n"], ids=["icp", "rescore"])
 def test_depth_stages_are_refused(ws, extra):
+    """The depth stages render each class's MODEL_PATH mesh; this workspace
+    names none that exists, so a frame with depth is refused with the
+    missing file (the depth stages themselves: test_torch_serving_depth.py)."""
     from augmentedautoencoder_torch.pose import AePoseEstimator
     from augmentedautoencoder_torch.serving import PoseServer
 
@@ -152,9 +155,9 @@ def test_depth_stages_are_refused(ws, extra):
     server = PoseServer(cfg_path, max_dets_per_class=2, device="cpu")
     est = AePoseEstimator(cfg_path, device="cpu")
     assert "depth_img" in est.query_process_requirements()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError, match="/nonexistent/model.ply"):
         server.process(**fr, depth_img=depth)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError, match="/nonexistent/model.ply"):
         est.process(**fr, depth_img=depth)
     # without depth both serve, as the JAX package does
     assert len(server.process(**fr)) == len(est.process(**fr)) == 2
