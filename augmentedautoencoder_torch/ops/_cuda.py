@@ -1,7 +1,8 @@
 """Build and bind the port's hand-written CUDA kernels.
 
 The sources are `augmentedautoencoder_torch/csrc/*.cu` (codebook_query.cu:
-the codebook top-k; icp_nn.cu: the ICP nearest neighbour). On first use they
+the codebook top-k, in two designs; icp_nn.cu: the ICP nearest neighbour,
+the fused design and the first one kept for comparison). On first use they
 are compiled by `nvcc` for Hopper (sm_90a), one process per source, all
 started together, and linked into one shared library with a plain C
 interface under `build/aae_torch_kernels/<hash of the sources>/`. The
@@ -19,8 +20,9 @@ import shutil
 import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
+from functools import lru_cache
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -32,9 +34,22 @@ LIB_NAME = "libaae_torch_kernels.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-Xcompiler", "-fPIC"]
 
-_TILE_ROWS = 256  # rows per block tile in csrc/codebook_query.cu
+_TILE_ROWS = 256  # rows per block tile of aae_codebook_topk
 _MAX_D = 256
 _MAX_K = 32
+
+# aae_codebook_topk_stream (csrc/codebook_query.cu)
+STREAM_Q = 64  # queries per block (kStreamQ)
+STREAM_BLOCKS_PER_SM = 2
+_STREAM_TILE_BYTES = 16384  # row bytes per pipeline stage, about
+_STREAM_MAX_STAGES = 4
+
+# aae_batched_nn (csrc/icp_nn.cu)
+NN_SRC_PER_BLOCK = 1024  # kNnThreads * kPts
+NN_BLOCKS_PER_SM = 4  # search blocks per SM the destination split aims at
+_NN_MIN_SPLIT = 64
+_NN_MAX_SPLIT = 2048  # destinations per block: a 32 KB float4 tile
+_NN_MAX_N = 65535 * _NN_MAX_SPLIT
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -124,8 +139,19 @@ def lib() -> ctypes.CDLL:
                 p, p, p, p, p,
             ]
             handle.aae_codebook_topk.restype = i32
+            handle.aae_codebook_topk_stream.argtypes = [
+                p, p, i32, i32, i64, i32, i32, i32, i32, i32, i32, i32, i32, i32,
+                p, p, p, p, p,
+            ]
+            handle.aae_codebook_topk_stream.restype = i32
             handle.aae_batched_nn_min.argtypes = [p, p, i32, i32, p, p, p]
             handle.aae_batched_nn_min.restype = i32
+            handle.aae_batched_nn.argtypes = [
+                p, p, i32, i32, i32, ctypes.c_float, p, p, p, p, p, p, p,
+            ]
+            handle.aae_batched_nn.restype = i32
+            handle.aae_device_smem.argtypes = [i32, p]
+            handle.aae_device_smem.restype = i32
             handle.aae_cuda_error_string.argtypes = [i32]
             handle.aae_cuda_error_string.restype = ctypes.c_char_p
             _lib = handle
@@ -138,6 +164,52 @@ def _check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
+@lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a CUDA device, read once per device."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+class SmemLimits(NamedTuple):
+    """Shared memory of a CUDA device, in bytes."""
+
+    per_sm: int
+    per_block: int  # the most one block may opt in to
+    reserved: int  # taken by the runtime in each block
+
+
+@lru_cache(maxsize=None)
+def smem_limits(device_index: int) -> SmemLimits:
+    """The device's shared-memory limits, read once per device."""
+    out = (ctypes.c_int * 3)()
+    _check(lib().aae_device_smem(device_index, out), "aae_device_smem")
+    return SmemLimits(*out)
+
+
+def _check_topk_args(q, cb, obj, n_rows, k, name) -> int:
+    """Shared argument checks of the two codebook top-k launches; returns
+    the rows per plane."""
+    if q.device.type != "cuda" or cb.device != q.device:
+        raise ValueError(f"{name} needs CUDA tensors on one device, got {q.device}, {cb.device}")
+    if cb.dtype not in (torch.float32, torch.bfloat16) or q.dtype != cb.dtype:
+        raise ValueError(f"{name} takes f32 or bf16 (q {q.dtype}, cb {cb.dtype})")
+    if q.dim() != 2 or cb.dim() not in (2, 3) or q.shape[1] != cb.shape[-1]:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} cb {tuple(cb.shape)}")
+    if not (q.is_contiguous() and cb.is_contiguous()):
+        raise ValueError(f"{name} needs contiguous tensors")
+    rows_per_obj = cb.shape[-2]
+    n_obj = cb.shape[0] if cb.dim() == 3 else 1
+    if not 0 <= obj < n_obj:
+        raise ValueError(f"object {obj} outside the slab's {n_obj} planes")
+    if not 1 <= n_rows <= rows_per_obj:
+        raise ValueError(f"n_rows={n_rows} outside 1..{rows_per_obj}")
+    if q.shape[1] > _MAX_D:
+        raise ValueError(f"latent width {q.shape[1]} > {_MAX_D} is not supported by the kernel")
+    if not 1 <= k <= min(_MAX_K, n_rows):
+        raise ValueError(f"k={k} outside 1..min({_MAX_K}, {n_rows})")
+    return rows_per_obj
+
+
 def codebook_topk(
     q: torch.Tensor,
     cb: torch.Tensor,
@@ -147,7 +219,8 @@ def codebook_topk(
     stride: int,
     k: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch csrc/codebook_query.cu on the current stream.
+    """Launch aae_codebook_topk of csrc/codebook_query.cu (the first
+    design; grouped_codebook_top1 and cosine_top1_cuda) on the current stream.
 
     q: (B, D) normalized queries, already in cb's dtype. cb: (N, D) or
     (O, N_pad, D), f32 or bf16, contiguous, on q's device. Scores rows
@@ -155,25 +228,8 @@ def codebook_topk(
     `stride`, score -2. Returns (vals (B, k) f32, idcs (B, k) int32), best
     first, ties to the lowest index. Does not synchronise.
     """
-    if q.device.type != "cuda" or cb.device != q.device:
-        raise ValueError(f"codebook_topk needs CUDA tensors on one device, got {q.device}, {cb.device}")
-    if cb.dtype not in (torch.float32, torch.bfloat16) or q.dtype != cb.dtype:
-        raise ValueError(f"codebook_topk takes f32 or bf16 (q {q.dtype}, cb {cb.dtype})")
-    if q.dim() != 2 or cb.dim() not in (2, 3) or q.shape[1] != cb.shape[-1]:
-        raise ValueError(f"bad shapes q {tuple(q.shape)} cb {tuple(cb.shape)}")
-    if not (q.is_contiguous() and cb.is_contiguous()):
-        raise ValueError("codebook_topk needs contiguous tensors")
+    rows_per_obj = _check_topk_args(q, cb, obj, n_rows, k, "codebook_topk")
     b, d = q.shape
-    rows_per_obj = cb.shape[-2]
-    n_obj = cb.shape[0] if cb.dim() == 3 else 1
-    if not 0 <= obj < n_obj:
-        raise ValueError(f"object {obj} outside the slab's {n_obj} planes")
-    if not 1 <= n_rows <= rows_per_obj:
-        raise ValueError(f"n_rows={n_rows} outside 1..{rows_per_obj}")
-    if d > _MAX_D:
-        raise ValueError(f"latent width {d} > {_MAX_D} is not supported by the kernel")
-    if not 1 <= k <= min(_MAX_K, n_rows):
-        raise ValueError(f"k={k} outside 1..min({_MAX_K}, {n_rows})")
     if b == 0:
         return (
             torch.empty((0, k), dtype=torch.float32, device=q.device),
@@ -181,7 +237,7 @@ def codebook_topk(
         )
 
     # ~2 blocks per SM in flight over all query chunks; whole tiles per block
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    sms = sm_count(q.device.index)
     tiles = -(-n_rows // _TILE_ROWS)
     q_chunks = -(-b // 8)
     want = max(1, (2 * sms) // q_chunks)
@@ -204,7 +260,8 @@ def codebook_topk(
 
 
 def batched_nn_min(src: torch.Tensor, dst: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch csrc/icp_nn.cu on the current stream.
+    """Launch aae_batched_nn_min of csrc/icp_nn.cu, the first design's
+    search, kept for comparison (chip_smoke.py), on the current stream.
 
     src: (n, N, 3) f32, the centred source points times -2; dst: (n, N, 4)
     f32 rows (x, y, z, |d|^2) of the centred destination points; both
@@ -231,3 +288,149 @@ def batched_nn_min(src: torch.Tensor, dst: torch.Tensor) -> Tuple[torch.Tensor, 
     )
     _check(rc, "aae_batched_nn_min launch")
     return out_min, out_idx
+
+
+class StreamPlan(NamedTuple):
+    """Launch shape of aae_codebook_topk_stream."""
+
+    rows_per_tile: int
+    stages: int
+    n_blocks: int
+    smem_bytes: int
+    scratch_words: int  # int32 words of one allocation: part_v, part_i, out_v, out_i
+
+
+def check_stream_width(d: int, dtype: torch.dtype) -> None:
+    """The streaming kernel copies whole rows in 16-byte pieces, and a bf16
+    slab is scored in tensor-core steps of 16 columns."""
+    step = 16 if dtype == torch.bfloat16 else 4
+    if d % step:
+        raise ValueError(
+            f"grouped_codebook_topk on CUDA needs a latent width that is a multiple of {step} "
+            f"for a {dtype} codebook (got {d}): rows are copied in 16-byte pieces"
+            + (" and scored in tensor-core steps of 16 columns" if step == 16 else "")
+        )
+
+
+def stream_smem_bytes(stages: int, rows_per_tile: int, row_bytes: int, qb: int, d: int, k: int) -> int:
+    """csrc/codebook_query.cu stream_smem_bytes: ring, queries, scores, lists."""
+    qpad = -(-qb // 8) * 8
+    return (stages * rows_per_tile * (row_bytes + 16) + qpad * (d + 8) * 4
+            + qb * rows_per_tile * 4 + qb * k * 8)
+
+
+@lru_cache(maxsize=None)
+def plan_topk_stream(
+    b: int, n_rows: int, d: int, elem_bytes: int, k: int, sms: int, smem: SmemLimits
+) -> StreamPlan:
+    """Tiles of whole rows of ~16 KB (a multiple of 32 rows), as many ring
+    stages (2-4) as fit STREAM_BLOCKS_PER_SM blocks in an SM's shared
+    memory; a persistent grid of STREAM_BLOCKS_PER_SM * sms blocks, never
+    more blocks than tiles. ValueError where 2 stages do not fit (a latent
+    width of about 200 or more with many queries)."""
+    row_bytes = d * elem_bytes
+    rows = max(32, (_STREAM_TILE_BYTES // row_bytes) // 32 * 32)
+    qb = min(b, STREAM_Q)
+    budget = min(smem.per_block, smem.per_sm // STREAM_BLOCKS_PER_SM - smem.reserved)
+    fixed = stream_smem_bytes(0, rows, row_bytes, qb, d, k)
+    stages = min(_STREAM_MAX_STAGES, (budget - fixed) // (rows * (row_bytes + 16)))
+    if stages < 2:
+        raise ValueError(
+            f"grouped_codebook_topk on CUDA: no 2-stage pipeline of {STREAM_BLOCKS_PER_SM} blocks "
+            f"per SM fits {budget} bytes of shared memory for {qb} queries of width {d}, k={k}"
+        )
+    n_blocks = min(-(-n_rows // rows), STREAM_BLOCKS_PER_SM * sms)
+    scratch = 2 * b * n_blocks * k + 2 * b * k
+    return StreamPlan(rows, stages, n_blocks, stream_smem_bytes(stages, rows, row_bytes, qb, d, k), scratch)
+
+
+def codebook_topk_stream(
+    q: torch.Tensor,
+    cb: torch.Tensor,
+    obj: int,
+    n_rows: int,
+    n_valid: int,
+    stride: int,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the streaming top-k of csrc/codebook_query.cu on the current
+    stream: the same contract as `codebook_topk`, for rows of a multiple of
+    16 bytes. One allocation (outputs and scratch); does not synchronise."""
+    rows_per_obj = _check_topk_args(q, cb, obj, n_rows, k, "codebook_topk_stream")
+    b, d = q.shape
+    check_stream_width(d, cb.dtype)
+    if cb.data_ptr() % 16:
+        raise ValueError("codebook_topk_stream needs a 16-byte aligned codebook")
+    if b == 0:
+        return (
+            torch.empty((0, k), dtype=torch.float32, device=q.device),
+            torch.empty((0, k), dtype=torch.int32, device=q.device),
+        )
+    dev = q.device.index
+    plan = plan_topk_stream(b, n_rows, d, cb.element_size(), k, sm_count(dev), smem_limits(dev))
+    buf = torch.empty((plan.scratch_words,), dtype=torch.int32, device=q.device)
+    base, part = buf.data_ptr(), b * plan.n_blocks * k
+    rc = lib().aae_codebook_topk_stream(
+        q.data_ptr(), cb.data_ptr(), int(cb.dtype == torch.bfloat16), int(obj),
+        int(rows_per_obj), int(n_rows), int(n_valid), int(stride), b, d, int(k),
+        plan.rows_per_tile, plan.stages, plan.n_blocks,
+        base, base + 4 * part, base + 8 * part, base + 8 * part + 4 * b * k,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _check(rc, "aae_codebook_topk_stream launch")
+    out = buf[2 * part:].view(2, b, k)
+    return out[0].view(torch.float32), out[1]
+
+
+@lru_cache(maxsize=None)
+def plan_nn(n: int, N: int, sms: int) -> Tuple[int, int]:
+    """(split_len, n_splits) of aae_batched_nn: each lane's destinations are
+    cut into n_splits runs of split_len (the last one shorter), so that
+    n * ceil(N / 1024) * n_splits blocks come near NN_BLOCKS_PER_SM * sms
+    (4 blocks of 256 threads at 64 registers a thread fill an SM's
+    registers), with runs of at most 2048 points and no more than
+    ceil(N / 64) runs."""
+    src_blocks = -(-N // NN_SRC_PER_BLOCK)
+    want = -(-NN_BLOCKS_PER_SM * sms // (n * src_blocks))
+    splits = max(1, min(want, -(-N // _NN_MIN_SPLIT)))
+    split_len = min(-(-N // splits), _NN_MAX_SPLIT)
+    return split_len, -(-N // split_len)
+
+
+def batched_nn(src: torch.Tensor, dst: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch csrc/icp_nn.cu aae_batched_nn on the current stream.
+
+    src, dst: (n, N, 3) f32 clouds, contiguous, on one CUDA device.
+    Returns (dist (n, N) f32, idx (n, N) int32): batched_nn_torch's
+    function, bit for bit. One allocation (outputs and scratch), two
+    launches (nn_prep_kernel, nn_search_kernel); does not synchronise.
+    """
+    from .icp_nn import recip_f32
+
+    if src.device.type != "cuda" or dst.device != src.device:
+        raise ValueError(f"batched_nn needs CUDA tensors on one device, got {src.device}, {dst.device}")
+    if src.dtype != torch.float32 or dst.dtype != torch.float32:
+        raise ValueError(f"batched_nn takes f32 (src {src.dtype}, dst {dst.dtype})")
+    if src.dim() != 3 or src.shape[2] != 3 or dst.shape != src.shape:
+        raise ValueError(f"bad shapes src {tuple(src.shape)} dst {tuple(dst.shape)}")
+    if not (src.is_contiguous() and dst.is_contiguous()):
+        raise ValueError("batched_nn needs contiguous tensors")
+    n, N = src.shape[0], src.shape[1]
+    if n > 65535 or N > _NN_MAX_N:
+        raise ValueError(f"batched_nn takes up to 65535 lanes of {_NN_MAX_N} points, got ({n}, {N})")
+    if n == 0 or N == 0:
+        return (torch.empty((n, N), dtype=torch.float32, device=src.device),
+                torch.empty((n, N), dtype=torch.int32, device=src.device))
+    split_len, _ = plan_nn(n, N, sm_count(src.device.index))
+    nN, src_blocks = n * N, -(-N // NN_SRC_PER_BLOCK)
+    # int32 words: rows (4 nN), keys (2 nN), dist, idx, mu (3 n), arrivals
+    buf = torch.empty((8 * nN + 3 * n + n * src_blocks,), dtype=torch.int32, device=src.device)
+    base = buf.data_ptr()
+    rc = lib().aae_batched_nn(
+        src.data_ptr(), dst.data_ptr(), n, N, split_len, recip_f32(N),
+        base, base + 16 * nN, base + 32 * nN, base + 32 * nN + 12 * n, base + 24 * nN, base + 28 * nN,
+        torch.cuda.current_stream(src.device).cuda_stream,
+    )
+    _check(rc, "aae_batched_nn launch")
+    out = buf[6 * nN: 8 * nN].view(2, n, N)
+    return out[0].view(torch.float32), out[1]

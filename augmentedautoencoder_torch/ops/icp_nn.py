@@ -16,25 +16,32 @@ every product and sum rounded on its own. Ties go to the lowest index.
 
   * `batched_nn_torch` -- the plain version: the same scores as broadcast
     elementwise ops, in blocks of source points, and the first minimum;
-  * `batched_nn_cuda` -- the same function with the (min, argmin) search
-    in csrc/icp_nn.cu (counterpart of the Pallas `batched_nn_pallas`); it
-    counts its launches in `batched_nn_cuda.launches`;
+  * `batched_nn_cuda` -- the whole function in csrc/icp_nn.cu
+    (counterpart of the Pallas `batched_nn_pallas`): two launches, the
+    centring, the search and the distances inside them; it counts its calls
+    in `batched_nn_cuda.launches`;
   * `batched_nn` -- the wrapper: the plain version for CPU tensors, the
     kernel for CUDA tensors, ValueError otherwise.
 
-Both share `_operands` and `_distances`, so the kernel sees exactly the
-plain version's operands and the two agree bit for bit. Every sum here is
-an explicit order of elementwise adds (`sum3`, `tree_sum`), never a library
-reduction, whose order differs between the CPU and the GPU: the CPU and
-GPU results are then identical too, and so is the ICP loop built on them
-(pose/icp.py), even where a lane limit-cycles to its iteration cap and a
-last-bit difference would otherwise end it elsewhere.
+The kernel repeats the plain version's arithmetic operation for operation
+(the centroid by the same `tree_sum` order and the same f32 reciprocal,
+every product and sum rounded on its own), so on one device the two agree
+bit for bit. Every sum here is an explicit order of elementwise adds
+(`sum3`, `tree_sum`), never a library reduction, whose order differs
+between the CPU and the GPU, and a mean multiplies by the f32 reciprocal
+of its count (`tree_mean`). CUDA's true division by a host scalar computes
+that product, while the CPU divides, so a mean written `x / n` rounded
+apart on the two devices. The ICP loop (pose/icp.py) is built from these
+sums and from elementwise IEEE operations (+, -, *, /, sqrt), so it is
+meant to compute the same bits on the CPU and on the GPU; chip_smoke.py
+phase 5 compares one-detection frames of both.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -61,16 +68,28 @@ def tree_sum(x: Tensor, dim: int) -> Tensor:
     return x[0]
 
 
+def recip_f32(n: int) -> float:
+    """1 / n rounded to f32: the factor of every mean here, on every device."""
+    return float(np.float32(1.0) / np.float32(n))
+
+
 def tree_mean(x: Tensor, dim: int) -> Tensor:
-    return tree_sum(x, dim) / x.shape[dim]
+    """`tree_sum` times the f32 reciprocal of the count: one multiply that
+    the CPU and the GPU round alike (`x / n` divides on the CPU but
+    multiplies by the reciprocal on CUDA)."""
+    return tree_sum(x, dim) * recip_f32(x.shape[dim])
 
 
-def _operands(src: Tensor, dst: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """(s, s' = -2 s, d, |d|^2) of the clouds centred on dst's lane centroid."""
+def _check_clouds(src: Tensor, dst: Tensor) -> None:
     if src.dim() != 3 or src.shape[-1] != 3 or dst.shape != src.shape:
         raise ValueError(f"batched_nn takes (n, N, 3) src and dst, got {tuple(src.shape)}, {tuple(dst.shape)}")
     if src.dtype != torch.float32 or dst.dtype != torch.float32:
         raise ValueError(f"batched_nn takes f32 clouds, got {src.dtype}, {dst.dtype}")
+
+
+def _operands(src: Tensor, dst: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """(s, s' = -2 s, d, |d|^2) of the clouds centred on dst's lane centroid."""
+    _check_clouds(src, dst)
     mu = tree_mean(dst, 1)[:, None]
     s = src - mu
     d = dst - mu
@@ -111,19 +130,15 @@ def batched_nn_torch(src: Tensor, dst: Tensor) -> Tuple[Tensor, Tensor]:
     return _distances(s, min_score), idx
 
 
-def kernel_operands(sp: Tensor, d: Tensor, dsq: Tensor) -> Tuple[Tensor, Tensor]:
-    """csrc/icp_nn.cu's inputs: s' (n, N, 3) and rows (x, y, z, |d|^2) (n, N, 4)."""
-    return sp.contiguous(), torch.cat([d, dsq[..., None]], dim=-1).contiguous()
-
-
 def batched_nn_cuda(src: Tensor, dst: Tensor) -> Tuple[Tensor, Tensor]:
-    """The (min, argmin) search in csrc/icp_nn.cu, on src's CUDA device."""
-    from ._cuda import batched_nn_min
+    """The whole function in csrc/icp_nn.cu, on src's CUDA device: no
+    PyTorch op besides the one allocation of outputs and scratch."""
+    from ._cuda import batched_nn as launch
 
-    s, sp, d, dsq = _operands(src, dst)
-    min_score, idx = batched_nn_min(*kernel_operands(sp, d, dsq))
+    _check_clouds(src, dst)
+    out = launch(src.contiguous(), dst.contiguous())
     batched_nn_cuda.launches += 1
-    return _distances(s, min_score), idx
+    return out
 
 
 batched_nn_cuda.launches = 0

@@ -8,8 +8,11 @@ only that object's plane:
   * `grouped_codebook_topk` -- the ranked top-k, 1 <= k <= 32, with the
     `upright` stride mask (Pallas `grouped_codebook_topk`).
 
-On CUDA tensors each launches csrc/codebook_query.cu and counts the launch
-in its `launches` attribute; on CPU tensors each runs its plain version
+On CUDA tensors each launches csrc/codebook_query.cu (top-1: the first
+port's `aae_codebook_topk`; top-k: the streaming `aae_codebook_topk_stream`,
+which takes a latent width that is a multiple of 16 in bf16, of 4 in f32)
+and counts the launch in its
+`launches` attribute; on CPU tensors each runs its plain version
 (`*_plain`), which follows the JAX function's formula. Padded rows
 (index >= n_valid) score -2 and never beat a true row.
 """
@@ -136,15 +139,18 @@ def grouped_codebook_topk(
     """Ranked top-k for queries sharing object `obj_id`, 1 <= k <= 32
     (ValueError otherwise, as in the JAX package). `stride` keeps only rows
     with index % stride == 0 (`upright`). Returns (vals (B, k) f32,
-    idcs (B, k) int32), best first, ties to the lowest global index."""
+    idcs (B, k) int32), best first, ties to the lowest global index. On
+    CUDA the latent width must be a multiple of 16 in bf16 (tensor-core
+    steps of 16 columns) and of 4 in f32 (16-byte row copies); ValueError
+    otherwise."""
     _check_k(k)
     if _device_check("grouped_codebook_topk", z, codebooks):
         return grouped_codebook_topk_plain(z, codebooks, obj_id, n_valid, k=k, stride=stride)
-    from ._cuda import codebook_topk
+    from ._cuda import codebook_topk_stream
 
     n_pad = codebooks.shape[1]
     q = l2_normalize(z.float()).to(codebooks.dtype).contiguous()
-    vals, idcs = codebook_topk(
+    vals, idcs = codebook_topk_stream(
         q, codebooks, int(obj_id), n_pad, _n_valid(n_valid, codebooks), int(stride), k
     )
     grouped_codebook_topk.launches += 1

@@ -12,8 +12,9 @@ Device half (PyTorch, f32, batched over (n, ...) lanes): `best_fit_transform_tor
 correspondence step is `ops.icp_nn.batched_nn` (the CUDA kernel on a GPU).
 Every 3x3 product, the cross-covariance H and the point transform are
 written as explicit f32 sums of elementwise products: no matmul, so no
-TF32 on this path, and no torch.linalg (svd, inv, det). Every mean is a
-fixed-order `tree_sum` (ops/icp_nn.py), so the loop computes the same bits
+TF32 on this path, and no torch.linalg (svd, inv, det). Every sum is a
+fixed-order `tree_sum` and every mean multiplies it by the f32 reciprocal
+of the count (ops/icp_nn.py), so the loop is meant to compute the same bits
 on the CPU and on the GPU.
 
 Host half (numpy, as in the JAX package): `SynRenderer`, the cloud prep

@@ -13,12 +13,17 @@ no jax. Phases, each fatal on failure:
                  ptxas resource report;
   3. kernels  -- each CUDA kernel against its plain PyTorch version on seeded
                  tensors at the serving shapes (92,232-row codebook; a
-                 (30, 94,208, 128) slab in f32 and bf16; k in {1, 8, 32};
-                 stride in {1, 36}; duplicated-row ties; masked rows; the ICP
-                 nearest neighbour at (24, 3000), (3, 3000), (2, 100),
-                 (1, 1025) and with duplicated destination points), with
-                 CUDA-event times of the kernel, the plain version and one
-                 PyTorch library call computing the same function;
+                 (30, 94,208, 128) slab in f32 and bf16; B in {8, 64}; k in
+                 {1, 8, 32}; stride in {1, 36}; duplicated-row ties; masked
+                 rows; the ICP nearest neighbour at (8, 3000), the main
+                 path's shape, (24, 3000), (3, 3000) and 7 other shapes, with
+                 duplicated destination points and the JAX (1, 8) tie;
+                 CUDA's x / n against the f32 reciprocal). CUDA-event times
+                 of each port function whole and of its kernel launch alone,
+                 the plain version, one PyTorch library call computing the
+                 same function and, for B2 and B4, the first designs; the
+                 device rows of one B2 and one B4 call under torch.profiler
+                 (at most 2 launches, no PyTorch kernels);
   4. serving  -- a 3-class workspace at the full width of
                  cfg_templates/train_template.cfg (128x128x3, filters
                  [128, 256, 512, 512], latent 128, 92,232-row codebooks) with
@@ -72,6 +77,11 @@ VAL_TOL = 1e-5  # |kernel - plain| for every returned score
 # the tensor cores, the type every kernel here computes in
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# B4's instruction floor: 6 f32 operations (no FMA), a compare and a select
+# per pair, at 132 SMs x 128 f32 lanes x ~2.0 GHz
+NN_INSTR_PER_PAIR = 8
+F32_INSTR_PER_S = 33.8e12
+SPIN_CYCLES = 1_000_000  # ~0.5 ms at ~2 GHz: longer than the host takes to issue one call
 POSE_T_TOL_MM = 0.1  # GPU vs CPU port, depth-refined poses
 POSE_R_TOL = 1e-3
 # ICP's rotation-only stage (the reference's: R and x, y fitted, z held)
@@ -125,28 +135,27 @@ def build_phase():
 
 
 # ------------------------------------------------------------------ phase 3
-def time_pair(kernel_fn, plain_fn, reps=20, warmup=3, library_fn=None):
-    """Median ms per launch of a kernel, its plain version and, if given,
-    one library call computing the same function, by CUDA events: `reps`
-    launches each after warm-up, in turns (plain, kernel, library, library,
-    kernel, plain), with the 50 MB L2 flushed before every launch: serving
-    reads each class's plane once per frame, after the encoder has swept
-    the cache. The last result of each is read back to the host. Returns
-    (kernel ms, plain ms, library ms or None)."""
+def time_fns(fns, reps=20, warmup=3):
+    """Median device ms per call of each fn() by CUDA events: `reps` calls
+    each after warm-up, in turns (in order, then reversed), with the 50 MB
+    L2 flushed before every call (serving reads each class's plane once
+    per frame, after the encoder has swept the cache) and a spin kernel
+    queued after the flush, so that the host has issued the whole call
+    before the start event is reached: the time between the events is the
+    device's, without the host's launch overhead. The last result of each
+    is read back to the host. Returns {tag: ms}."""
     import torch
 
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")  # 256 MB
-    fns = {"kernel": kernel_fn, "plain": plain_fn}
-    if library_fn is not None:
-        fns["library"] = library_fn
     for _ in range(warmup):
         for fn in fns.values():
             fn()
-    order = [t for t in ("plain", "kernel", "library") if t in fns]
-    runs = {tag: [] for tag in fns}
+    order = list(fns)
+    runs = {tag: [] for tag in order}
     last = {}
     for tag in (order + order[::-1]) * (reps // 2):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         last[tag] = fns[tag]()
@@ -160,7 +169,103 @@ def time_pair(kernel_fn, plain_fn, reps=20, warmup=3, library_fn=None):
         ms = sorted(s.elapsed_time(e) for s, e in pairs)
         return ms[len(ms) // 2]
 
-    return median(runs["kernel"]), median(runs["plain"]), median(runs["library"]) if "library" in runs else None
+    return {tag: median(runs[tag]) for tag in order}
+
+
+def call_ms(fns, calls=25, rounds=6):
+    """Host-clock ms per call of each fn() in fns, issued back to back (warm
+    L2) in runs of `calls` with one synchronisation at the end of each: the
+    cost of the call in a loop that issues it again and again, the host's
+    launch overhead included. The functions take turns (ABC CBA ...), so
+    drift of the host's speed falls on all alike; median over the runs."""
+    import torch
+
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    order = list(fns)
+    runs = {tag: [] for tag in order}
+    for tag in (order + order[::-1]) * (rounds // 2):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fns[tag]()
+        torch.cuda.synchronize()
+        runs[tag].append(1e3 * (time.perf_counter() - t0) / calls)
+    return {tag: sorted(ms)[len(ms) // 2] for tag, ms in runs.items()}
+
+
+def timed(name, cost, reps, **fns):
+    """Times whole (the port's function from the user's inputs), launch
+    (the kernel's binding on operands already in its input form), plain,
+    library and any older design given (first_whole: the same wrapper
+    around the older binding, see `via`; first_launch) on the device, and
+    the whole functions per call on the host clock; logs them
+    and returns the record of the kernels' JSON line."""
+    t = time_fns(fns, reps)
+    calls = call_ms({tag: fns[tag] for tag in ("whole", "library", "first_whole") if tag in fns})
+    log(f"  {name}: device " + ", ".join(f"{tag} {ms:.4f}" for tag, ms in t.items())
+        + f" ms; per call (host clock) " + ", ".join(f"{tag} {ms:.4f}" for tag, ms in calls.items())
+        + f" ms; bound {bound_ms(*cost)[0]:.4f} ms")
+    rec = {"shape": name, "ms": t["whole"], "launch_ms": t["launch"], "plain_ms": t["plain"],
+           "library_ms": t.get("library"), "call_ms": calls["whole"],
+           "library_call_ms": calls.get("library"), "n_bytes": cost[0], "flops": cost[1]}
+    if "first_whole" in t:
+        rec.update(first_ms=t["first_whole"], first_launch_ms=t["first_launch"], first_call_ms=calls["first_whole"])
+        verdict = {key: "faster" if rec[key] < rec["first_" + key] else "NOT faster"
+                   for key in ("launch_ms", "ms", "call_ms")}
+        log(f"  {name}: new design vs first design: launch {rec['launch_ms']:.4f} vs "
+            f"{rec['first_launch_ms']:.4f} ms ({verdict['launch_ms']}), whole {rec['ms']:.4f} vs "
+            f"{rec['first_ms']:.4f} ms ({verdict['ms']}), per call {rec['call_ms']:.4f} vs "
+            f"{rec['first_call_ms']:.4f} ms ({verdict['call_ms']})")
+    return rec
+
+
+def device_rows(fn, calls=4):
+    """(name, launches per call, device ms per call) of the device-side rows
+    torch.profiler records over `calls` calls of fn(), after one warm-up
+    call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.count / calls, e.self_device_time_total / 1e3 / calls) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count > 0]
+
+
+def show_rows(name, rows, allowed):
+    """Logs the device rows of one call; fails unless every row is one of
+    the kernels in `allowed` and a call makes at most 2 launches."""
+    log(f"  {name}, device rows per call under torch.profiler: "
+        + ("; ".join(f"{k[:48]} x{c:g} {ms:.4f} ms" for k, c, ms in rows) or "none"))
+    if not rows:
+        raise AssertionError(f"{name}: torch.profiler saw no device rows, so the launches per call "
+                             "were not measured")
+    launches = sum(c for _, c, _ in rows)
+    if launches > 2 or any(not any(a in k for a in allowed) for k, _, _ in rows):
+        raise AssertionError(f"{name}: {launches:g} device launches per call {rows}, want <= 2 of {allowed}")
+
+
+def via(name, binding, call):
+    """A function running call() with _cuda.<name> replaced by `binding`.
+    The port's wrappers look their binding up in _cuda at every call, so an
+    older design is timed through the same wrapper code as the new one."""
+    from augmentedautoencoder_torch.ops import _cuda
+
+    def run():
+        saved = getattr(_cuda, name)
+        setattr(_cuda, name, binding)
+        try:
+            return call()
+        finally:
+            setattr(_cuda, name, saved)
+
+    return run
 
 
 def bound_ms(n_bytes, flops):
@@ -209,8 +314,11 @@ def query_cost(z, cb, n_rows, k):
 
 
 def kernel_phase(n_rows=92_232, n_obj=30, d=128, objs=(0, 17, 29), bs=(8, 64), reps=20):
+    """B1-B3 against their plain versions. Returns (max |dv| per kernel,
+    {kernel name: timing record at the main path's shape})."""
     import torch
 
+    from augmentedautoencoder_torch.ops import _cuda
     from augmentedautoencoder_torch.ops import multi_codebook as mc
     from augmentedautoencoder_torch.ops import nn_query as nq
     from augmentedautoencoder_torch.ops.nn_query import l2_normalize, topk_lowest_index
@@ -219,7 +327,7 @@ def kernel_phase(n_rows=92_232, n_obj=30, d=128, objs=(0, 17, 29), bs=(8, 64), r
     gen = torch.Generator(device=dev).manual_seed(0)
     n_pad = -(-n_rows // 2048) * 2048
     errs = {"cosine_top1_cuda": 0.0, "grouped_codebook_top1": 0.0, "grouped_codebook_topk": 0.0}
-    times = []
+    records = {}
 
     def rows(n):
         return l2_normalize(torch.randn((n, d), generator=gen, device=dev))
@@ -232,6 +340,9 @@ def kernel_phase(n_rows=92_232, n_obj=30, d=128, objs=(0, 17, 29), bs=(8, 64), r
         s = torch.where(valid[None], s, torch.full_like(s, -2.0))
         return topk_lowest_index(s, k + 1)[0]
 
+    def prep(z, cb):  # the kernels' query operand
+        return l2_normalize(z.float()).to(cb.dtype).contiguous()
+
     # -- B3: single-codebook top-1 (estimator path)
     cb32 = rows(n_rows)
     for dtype in (torch.float32, torch.bfloat16):
@@ -243,12 +354,15 @@ def kernel_phase(n_rows=92_232, n_obj=30, d=128, objs=(0, 17, 29), bs=(8, 64), r
             name = f"B3 cosine_top1 N={n_rows} B={b} {str(dtype)[6:]}"
             err = compare_topk(name, got, plain, ranking(z, cb, n_rows, 1, 1))
             errs["cosine_top1_cuda"] = max(errs["cosine_top1_cuda"], err)
-            t_k, t_p, t_l = time_pair(lambda: nq.cosine_top1_cuda(z, cb),
-                                      lambda: nq.cosine_top1_plain(z, cb), reps,
-                                      library_fn=lambda: library_topk(z, cb, 1))
-            times.append((name, t_k, t_p, t_l, *query_cost(z, cb, n_rows, 1)))
-            log(f"  {name}: ok, max|dv| {err:.2e}, kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-                f"matmul+topk {t_l:.4f} ms")
+            log(f"  {name}: ok, max|dv| {err:.2e}")
+            q = prep(z, cb)
+            rec = timed(name, query_cost(z, cb, n_rows, 1), reps,
+                        whole=lambda: nq.cosine_top1_cuda(z, cb),
+                        launch=lambda: _cuda.codebook_topk(q, cb, 0, n_rows, n_rows, 1, 1),
+                        plain=lambda: nq.cosine_top1_plain(z, cb),
+                        library=lambda: library_topk(z, cb, 1))
+            if dtype == torch.float32 and b == 8:
+                records["cosine_top1_cuda"] = rec
     # ties: copies of each query's best row at a lower index must win
     z = torch.randn((8, d), generator=gen, device=dev)
     best = nq.cosine_top1_plain(z, cb32)[1].long()
@@ -268,37 +382,50 @@ def kernel_phase(n_rows=92_232, n_obj=30, d=128, objs=(0, 17, 29), bs=(8, 64), r
     for dtype in (torch.float32, torch.bfloat16):
         slab = slab32.to(dtype)
         tag = str(dtype)[6:]
-        for obj in objs:
-            z = torch.randn((8, d), generator=gen, device=dev)
-            name = f"B1 grouped_top1 obj={obj} B=8 {tag}"
-            got = mc.grouped_codebook_top1(z, slab, obj, n_rows)
-            plain = mc.grouped_codebook_top1_plain(z, slab, obj, n_rows)
-            err = compare_topk(name, got, plain, ranking(z, slab[obj], n_rows, 1, 1))
-            errs["grouped_codebook_top1"] = max(errs["grouped_codebook_top1"], err)
-            msg = f"  {name}: ok, max|dv| {err:.2e}"
-            if obj == objs[1]:
-                t_k, t_p, t_l = time_pair(lambda: mc.grouped_codebook_top1(z, slab, obj, n_rows),
-                                          lambda: mc.grouped_codebook_top1_plain(z, slab, obj, n_rows),
-                                          reps, library_fn=lambda: library_topk(z, slab[obj, :n_rows], 1))
-                times.append((name, t_k, t_p, t_l, *query_cost(z, slab, n_rows, 1)))
-                msg += f", kernel {t_k:.4f} ms, plain {t_p:.4f} ms, matmul+topk {t_l:.4f} ms"
-            log(msg)
-            for k in (1, 8, 32):
-                for stride in (1, 36):
-                    name = f"B2 grouped_topk obj={obj} B=8 k={k} stride={stride} {tag}"
-                    got = mc.grouped_codebook_topk(z, slab, obj, n_rows, k=k, stride=stride)
-                    plain = mc.grouped_codebook_topk_plain(z, slab, obj, n_rows, k=k, stride=stride)
-                    err = compare_topk(name, got, plain, ranking(z, slab[obj], n_rows, stride, k))
-                    errs["grouped_codebook_topk"] = max(errs["grouped_codebook_topk"], err)
-                    msg = f"  {name}: ok, max|dv| {err:.2e}"
+        for b in bs:
+            for obj in (objs if b == 8 else objs[1:2]):
+                z = torch.randn((b, d), generator=gen, device=dev)
+                q = prep(z, slab)
+                if b == 8:
+                    name = f"B1 grouped_top1 obj={obj} B=8 {tag}"
+                    got = mc.grouped_codebook_top1(z, slab, obj, n_rows)
+                    plain = mc.grouped_codebook_top1_plain(z, slab, obj, n_rows)
+                    err = compare_topk(name, got, plain, ranking(z, slab[obj], n_rows, 1, 1))
+                    errs["grouped_codebook_top1"] = max(errs["grouped_codebook_top1"], err)
+                    log(f"  {name}: ok, max|dv| {err:.2e}")
                     if obj == objs[1]:
-                        t_k, t_p, t_l = time_pair(
-                            lambda: mc.grouped_codebook_topk(z, slab, obj, n_rows, k=k, stride=stride),
-                            lambda: mc.grouped_codebook_topk_plain(z, slab, obj, n_rows, k=k, stride=stride),
-                            reps, library_fn=lambda: library_topk(z, slab[obj, :n_rows:stride], k))
-                        times.append((name, t_k, t_p, t_l, *query_cost(z, slab, n_rows, k)))
-                        msg += f", kernel {t_k:.4f} ms, plain {t_p:.4f} ms, matmul+topk {t_l:.4f} ms"
-                    log(msg)
+                        rec = timed(name, query_cost(z, slab, n_rows, 1), reps,
+                                    whole=lambda: mc.grouped_codebook_top1(z, slab, obj, n_rows),
+                                    launch=lambda: _cuda.codebook_topk(q, slab, obj, n_pad, n_rows, 1, 1),
+                                    plain=lambda: mc.grouped_codebook_top1_plain(z, slab, obj, n_rows),
+                                    library=lambda: library_topk(z, slab[obj, :n_rows], 1))
+                        if dtype == torch.float32:
+                            records["grouped_codebook_top1"] = rec
+                for k in (1, 8, 32):
+                    for stride in (1, 36):
+                        name = f"B2 grouped_topk obj={obj} B={b} k={k} stride={stride} {tag}"
+                        got = mc.grouped_codebook_topk(z, slab, obj, n_rows, k=k, stride=stride)
+                        plain = mc.grouped_codebook_topk_plain(z, slab, obj, n_rows, k=k, stride=stride)
+                        err = compare_topk(name, got, plain, ranking(z, slab[obj], n_rows, stride, k))
+                        errs["grouped_codebook_topk"] = max(errs["grouped_codebook_topk"], err)
+                        log(f"  {name}: ok, max|dv| {err:.2e}")
+                        # timed: the recipes' shapes (agg8; upright top-1 at B = 8)
+                        if obj != objs[1] or (k, stride) not in ((8, 1), (1, 36)) or (b > 8 and k == 1):
+                            continue
+                        whole = lambda: mc.grouped_codebook_topk(z, slab, obj, n_rows, k=k, stride=stride)
+                        rec = timed(
+                            name, query_cost(z, slab, n_rows, k), reps,
+                            whole=whole,
+                            launch=lambda: _cuda.codebook_topk_stream(q, slab, obj, n_pad, n_rows, stride, k),
+                            plain=lambda: mc.grouped_codebook_topk_plain(z, slab, obj, n_rows, k=k, stride=stride),
+                            library=lambda: library_topk(z, slab[obj, :n_rows:stride], k),
+                            first_whole=via("codebook_topk_stream", _cuda.codebook_topk, whole),
+                            first_launch=lambda: _cuda.codebook_topk(q, slab, obj, n_pad, n_rows, stride, k))
+                        if (b, k, stride, dtype) == (8, 8, 1, torch.bfloat16):
+                            records["grouped_codebook_topk"] = rec
+                            show_rows(name, device_rows(
+                                lambda: _cuda.codebook_topk_stream(q, slab, obj, n_pad, n_rows, stride, k)),
+                                ("topk_stream_kernel", "topk_merge_wide_kernel"))
     # masked rows: the query's own code planted in the pad region and off
     # the stride must never be returned; on the stride it must
     obj = objs[1]
@@ -311,34 +438,67 @@ def kernel_phase(n_rows=92_232, n_obj=30, d=128, objs=(0, 17, 29), bs=(8, 64), r
     masked[obj, 36] = masked[obj, 300]
     masked[obj, 900] = masked[obj, 300]
     z[3] = masked[obj, 300]
-    v1, i1 = mc.grouped_codebook_top1(z, masked, obj, n_rows)
-    v2, i2 = mc.grouped_codebook_topk(z, masked, obj, n_rows, k=8, stride=36)
-    p2 = mc.grouped_codebook_topk_plain(z, masked, obj, n_rows, k=8, stride=36)
-    if (i1 >= n_rows).any() or int(i1[1]) != 37 or int(i2[2, 0]) != 72:
-        raise AssertionError(f"masked rows: top1 {i1.tolist()}, topk row0 {i2[:3, 0].tolist()}")
-    if (i2 % 36 != 0).any() or (i2 >= n_rows).any():
-        raise AssertionError("masked rows: top-k returned a masked index")
-    _, i3 = mc.grouped_codebook_topk(z[3:4], masked, obj, n_rows, k=3)
-    if int(i1[3]) != 36 or i3[0].tolist() != [36, 300, 900]:
-        raise AssertionError(f"slab ties: top1 {int(i1[3])}, top3 {i3[0].tolist()}")
-    compare_topk("B2 masked", (v2, i2), p2, ranking(z, masked[obj], n_rows, 36, 8))
-    log("  masked rows (pad region, off-stride) never returned; slab ties -> lowest index first: ok")
-    del slab32, slab, masked
+    for dtype in (torch.float32, torch.bfloat16):
+        m = masked.to(dtype)
+        v1, i1 = mc.grouped_codebook_top1(z, m, obj, n_rows)
+        v2, i2 = mc.grouped_codebook_topk(z, m, obj, n_rows, k=8, stride=36)
+        p2 = mc.grouped_codebook_topk_plain(z, m, obj, n_rows, k=8, stride=36)
+        if (i1 >= n_rows).any() or int(i1[1]) != 37 or int(i2[2, 0]) != 72:
+            raise AssertionError(f"masked rows: top1 {i1.tolist()}, topk row0 {i2[:3, 0].tolist()}")
+        if (i2 % 36 != 0).any() or (i2 >= n_rows).any():
+            raise AssertionError("masked rows: top-k returned a masked index")
+        _, i3 = mc.grouped_codebook_topk(z[3:4], m, obj, n_rows, k=3)
+        if int(i1[3]) != 36 or i3[0].tolist() != [36, 300, 900]:
+            raise AssertionError(f"slab ties: top1 {int(i1[3])}, top3 {i3[0].tolist()}")
+        errs["grouped_codebook_topk"] = max(errs["grouped_codebook_topk"], compare_topk(
+            "B2 masked", (v2, i2), p2, ranking(z, m[obj], n_rows, 36, 8)))
+    log("  masked rows (pad region, off-stride) never returned; slab ties -> lowest index first "
+        "(f32 and bf16): ok")
+    del slab32, slab, masked, m
     torch.cuda.empty_cache()
-    return errs, times
+    return errs, records
+
+
+def first_batched_nn(src, dst):
+    """The first design of batched_nn_cuda's body, for comparison only, in
+    place of the `_cuda.batched_nn` binding (see `via`): the operands
+    centred by PyTorch, the search kernel (aae_batched_nn_min), the
+    distances by PyTorch. The shape check is the wrapper's."""
+    import torch
+
+    from augmentedautoencoder_torch.ops import _cuda, icp_nn
+
+    mu = icp_nn.tree_mean(dst, 1)[:, None]
+    s, d = src - mu, dst - mu
+    rows = torch.cat([d, icp_nn.sum3(d * d)[..., None]], dim=-1).contiguous()
+    min_score, idx = _cuda.batched_nn_min((-2.0 * s).contiguous(), rows)
+    return icp_nn._distances(s, min_score), idx
 
 
 def nn_phase(reps=20):
     """B4: batched_nn_cuda against batched_nn_torch on the card. Indices
     must be equal everywhere and distances identical (max |d dist| 0): the
-    kernel rounds every product and sum as the plain version does.
-    Returns (max |d dist|, [(case, kernel ms, plain ms, cdist ms, bytes, flops)])."""
+    kernel repeats every rounding of the plain version. Returns (max |d
+    dist|, timing record at the main path's shape (8, 3000))."""
     import torch
 
-    from augmentedautoencoder_torch.ops import icp_nn
+    from augmentedautoencoder_torch.ops import _cuda, icp_nn
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
+
+    # the repaired tree_mean: CUDA's x / n is x * (f32 reciprocal of n)
+    for N in range(1, 5001):
+        x = torch.randn((8, 3), generator=gen, device=dev) * 3000.0 + 700.0 * N
+        if not torch.equal(x / N, x * icp_nn.recip_f32(N)):
+            raise AssertionError(f"x / {N} != x * recip_f32({N}) on CUDA")
+    for n, N in ((8, 3000), (24, 3000), (1, 3000)):
+        x = torch.randn((n, N, 3), generator=gen, device=dev) * 60.0 + 700.0
+        t = icp_nn.tree_sum(x, 1)
+        if not torch.equal(t / N, icp_nn.tree_mean(x, 1)):
+            raise AssertionError(f"tree_mean differs from tree_sum / N on CUDA at ({n}, {N})")
+    log("  tree_mean: x / n equals x * recip_f32(n) on CUDA for n = 1..5000 and the loop's "
+        "(8|24|1, 3000, 3) sums: ok")
 
     def clouds(n, N, scale=60.0, z=700.0):
         src = torch.randn((n, N, 3), generator=gen, device=dev) * scale
@@ -346,8 +506,6 @@ def nn_phase(reps=20):
         src[..., 2] += z
         dst[..., 2] += z
         return src, dst
-
-    from augmentedautoencoder_torch.ops import _cuda
 
     def library(src, dst):  # the yardstick: one distance matrix and its argmin
         return (torch.cdist(src, dst).argmin(-1),)
@@ -364,26 +522,37 @@ def nn_phase(reps=20):
             raise AssertionError(f"{name}: distances differ from the plain version by {err}")
         return got
 
-    err, times = 0.0, []
-    for n, N in ((24, 3000), (3, 3000), (2, 100), (1, 1025)):
+    sms = _cuda.sm_count(dev.index or 0)
+    record = None
+    for n, N in ((8, 3000), (24, 3000), (3, 3000), (2, 100), (1, 1025), (5, 2999), (2, 5000),
+                 (1, 20001), (1, 1), (3, 7)):
         src, dst = clouds(n, N)
         name = f"B4 batched_nn n={n} N={N}"
         compare(name, src, dst)
-        # the kernel alone and its plain counterpart on the same operands (the
-        # shared centring around them is a dozen small PyTorch launches, which
-        # at these sizes take longer than the search); then both functions whole
+        split_len, splits = _cuda.plan_nn(n, N, sms)
+        log(f"  {name}: ok, indices equal, max|d dist| 0 ({splits} destination splits of {split_len})")
+        if N != 3000:
+            continue
         s, sp, d, dsq = icp_nn._operands(src, dst)
-        k_in = icp_nn.kernel_operands(sp, d, dsq)
-        t_k, t_p, t_l = time_pair(lambda: _cuda.batched_nn_min(*k_in),
-                                  lambda: icp_nn.min_argmin_torch(sp, d, dsq), reps,
-                                  library_fn=lambda: library(src, dst))
-        w_k, w_p, _ = time_pair(lambda: icp_nn.batched_nn_cuda(src, dst),
-                                lambda: icp_nn.batched_nn_torch(src, dst), reps)
-        cost = (n * N * 7 * 4 + n * N * 8, 6 * n * N * N)  # read s', (d, |d|^2); write min, idx; 3 mul + 3 add a pair
-        times.append((name, t_k, t_p, t_l, *cost))
-        log(f"  {name}: ok, indices equal, max|d dist| 0; search: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-            f"bound {bound_ms(*cost)[0]:.4f} ms; whole function: batched_nn_cuda {w_k:.4f} ms, "
-            f"batched_nn_torch {w_p:.4f} ms, cdist+argmin {t_l:.4f} ms")
+        k_in = (sp.contiguous(), torch.cat([d, dsq[..., None]], dim=-1).contiguous())
+        # 3 multiplies and 3 adds a pair; read src and dst, write dist and idx
+        cost = (n * N * 6 * 4 + n * N * 8, 6 * n * N * N)
+        whole = lambda: icp_nn.batched_nn_cuda(src, dst)
+        rec = timed(name, cost, reps,
+                    whole=whole,
+                    launch=lambda: _cuda.batched_nn(src, dst),
+                    plain=lambda: icp_nn.batched_nn_torch(src, dst),
+                    library=lambda: library(src, dst),
+                    first_whole=via("batched_nn", first_batched_nn, whole),
+                    first_launch=lambda: _cuda.batched_nn_min(*k_in))
+        # worked out from assumed rates, not measured: logged, not in the kernels line
+        floor = 1e3 * n * N * N * NN_INSTR_PER_PAIR / F32_INSTR_PER_S
+        log(f"  {name}: instruction floor {floor:.4f} ms ({NN_INSTR_PER_PAIR} f32 instructions a pair "
+            f"at {F32_INSTR_PER_S / 1e12:.1f} T/s); launch at {rec['launch_ms'] / floor:.2f}x of it")
+        if n == 8:
+            record = rec
+            show_rows(name, device_rows(lambda: icp_nn.batched_nn_cuda(src, dst)),
+                      ("nn_prep_kernel", "nn_search_kernel"))
     # ties: every dst point twice (second copy 1500 later) -> the lower index
     src, dst = clouds(24, 3000)
     dst[:, 1500:] = dst[:, :1500]
@@ -397,7 +566,7 @@ def nn_phase(reps=20):
     if not (bool((idx == 2).all()) and float((dist - 1.0).abs().max()) < 1e-6):
         raise AssertionError(f"B4 tie: idx {idx.tolist()}, dist {dist.tolist()}")
     log("  B4 duplicated destination points -> lowest index; (1, 8) tie -> index 2: ok")
-    return err, times
+    return 0.0, record
 
 
 # ------------------------------------------------------------------ phase 4
@@ -922,9 +1091,8 @@ def main() -> int:
     build_phase()
     log(f"phase 3: kernels vs plain versions (values within {VAL_TOL}; indices equal where "
         f"the plain ranking's margin exceeds {MARGIN}; B4 identical; times: median of 20, cold L2)")
-    errs, times = kernel_phase()
-    errs["batched_nn_cuda"], nn_times = nn_phase()
-    times += nn_times
+    errs, records = kernel_phase()
+    errs["batched_nn_cuda"], records["batched_nn_cuda"] = nn_phase()
     with open(TEMPLATE) as fh:
         template = fh.read()
     with tempfile.TemporaryDirectory(prefix="aae_chip_smoke_") as root:
@@ -935,25 +1103,29 @@ def main() -> int:
     log(f"all phases passed in {time.perf_counter() - start:.1f} s")
 
     kernels = []
-    for name, source, replaces, prefix, launches in (
+    for name, source, replaces, launches in (
         ("grouped_codebook_top1", CODEBOOK_SOURCE, "augmentedautoencoder_tpu/ops/multi_codebook.py:72",
-         "B1 grouped_top1 obj=17 B=8 float32", summary["launches"]),
+         summary["launches"]),
         ("grouped_codebook_topk", CODEBOOK_SOURCE, "augmentedautoencoder_tpu/ops/multi_codebook.py:214",
-         "B2 grouped_topk obj=17 B=8 k=8 stride=1 bfloat16", summary["launches"]),
+         summary["launches"]),
         ("cosine_top1_cuda", CODEBOOK_SOURCE, "augmentedautoencoder_tpu/ops/nn_query.py:113",
-         "B3 cosine_top1 N=92232 B=8 float32", summary["launches"]),
-        ("batched_nn_cuda", NN_SOURCE, "augmentedautoencoder_tpu/ops/icp_nn.py:165",
-         "B4 batched_nn n=24 N=3000", depth["launches"]),
+         summary["launches"]),
+        ("batched_nn_cuda", NN_SOURCE, "augmentedautoencoder_tpu/ops/icp_nn.py:165", depth["launches"]),
     ):
-        shape, ms, plain_ms, library_ms, n_bytes, flops = next(t for t in times if t[0] == prefix)
-        bound, bound_by = bound_ms(n_bytes, flops)
+        rec = dict(records[name])
+        bound, bound_by = bound_ms(rec.pop("n_bytes"), rec.pop("flops"))
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": errs[name],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": library_ms,
+            "ms": rec.pop("ms"), "plain_ms": rec.pop("plain_ms"), "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": rec.pop("library_ms"),
+            "timed": {"ms": "device, whole function from the user's inputs, cold L2",
+                      "launch_ms": "device, kernel binding on operands in its input form, cold L2",
+                      "call_ms": "host clock per call of the whole function, back to back, warm L2, "
+                                 "median of runs taken in turns"},
+            **rec,
         })
-        log(f"{name}: ms / plain_ms / library_ms at {shape}; launches from phase "
+        log(f"{name}: times at {rec['shape']}; launches from phase "
             f"{5 if launches is depth['launches'] else 4}")
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -15,12 +15,16 @@ import torch
 from jax.experimental import pallas as pl
 
 from augmentedautoencoder_tpu.ops import multi_codebook as jmc
+from augmentedautoencoder_torch.ops import _cuda
 from augmentedautoencoder_torch.ops import multi_codebook as tmc
 
 torch.set_num_threads(1)
 
 ATOL = 1e-5
 TILE = 256
+# an H100's shared memory as cudaDeviceGetAttribute reports it: 228 KB per
+# SM, 227 KB for one block, 1 KB reserved in each block
+H100_SMEM = _cuda.SmemLimits(per_sm=233472, per_block=232448, reserved=1024)
 
 
 def _codebooks(sizes, d=32, seed=0, dups=()):
@@ -149,3 +153,87 @@ def test_multi_codebook_top1_matches_xla():
     got_v, got_i = tmc.multi_codebook_top1(torch.from_numpy(z), torch.from_numpy(slab), obj_ids, lengths)
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
     np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), atol=ATOL, rtol=0)
+
+
+# ------------------------------------------- the streaming kernel's host side
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b", [1, 3, 8, 24, 64, 65, 200])
+@pytest.mark.parametrize("k", [1, 4, 8, 32])
+def test_stream_plan_fits_the_card(dtype, b, k):
+    """plan_topk_stream for the serving shapes (92,232 rows padded to
+    94,208, latent 128; B up to 64 queries per block, more in chunks):
+    whole 16 KB-ish tiles of a multiple of 32 rows, 2-4 ring stages, a
+    persistent grid of 2 * 132 blocks that fits the SM's shared memory,
+    and scratch for every block's list."""
+    from augmentedautoencoder_torch.ops import _cuda
+
+    elem = 2 if dtype == torch.bfloat16 else 4
+    plan = _cuda.plan_topk_stream(b, 94208, 128, elem, k, 132, H100_SMEM)
+    assert plan.rows_per_tile % 32 == 0 and plan.rows_per_tile * 128 * elem <= 16384
+    assert 2 <= plan.stages <= 4 and _cuda.STREAM_BLOCKS_PER_SM == 2
+    assert 2 * (plan.smem_bytes + 1024) <= 233472 and plan.smem_bytes <= 232448
+    assert plan.smem_bytes == _cuda.stream_smem_bytes(
+        plan.stages, plan.rows_per_tile, 128 * elem, min(b, _cuda.STREAM_Q), 128, k)
+    assert plan.n_blocks == min(-(-94208 // plan.rows_per_tile), 2 * 132)
+    assert plan.scratch_words == 2 * b * plan.n_blocks * k + 2 * b * k
+    if b <= 8 and k <= 8:  # the serving recipes keep 4 stages in each block
+        assert plan.stages == 4
+
+
+def test_stream_plan_on_a_small_plane():
+    from augmentedautoencoder_torch.ops import _cuda
+
+    plan = _cuda.plan_topk_stream(8, 100, 128, 2, 8, 132, H100_SMEM)
+    assert plan.n_blocks == 2  # never more blocks than tiles
+
+
+@pytest.mark.parametrize("d, elem, b, k, fits", [
+    (256, 4, 64, 32, False), (256, 4, 8, 8, True), (256, 2, 64, 32, False), (256, 2, 8, 8, True),
+    (128, 4, 64, 32, True), (128, 2, 64, 32, True),
+])
+def test_stream_plan_refuses_what_does_not_fit(d, elem, b, k, fits):
+    """Where 2 ring stages of 2 blocks do not fit an SM's shared memory the
+    plan raises; it never falls back to fewer blocks per SM."""
+    from augmentedautoencoder_torch.ops import _cuda
+
+    if fits:
+        assert _cuda.plan_topk_stream(b, 94208, d, elem, k, 132, H100_SMEM).stages >= 2
+    else:
+        with pytest.raises(ValueError, match="no 2-stage pipeline"):
+            _cuda.plan_topk_stream(b, 94208, d, elem, k, 132, H100_SMEM)
+
+
+def test_stream_plan_follows_the_device_limits():
+    """The budget is read from the device: half an SM less the reserve, at
+    most the opt-in limit of one block."""
+    from augmentedautoencoder_torch.ops import _cuda
+
+    small = _cuda.SmemLimits(per_sm=102400, per_block=101376, reserved=1024)
+    assert _cuda.plan_topk_stream(8, 94208, 128, 2, 8, 132, small).stages == 2
+    with pytest.raises(ValueError, match="no 2-stage pipeline"):
+        _cuda.plan_topk_stream(64, 94208, 128, 2, 32, 132, small)
+
+
+@pytest.mark.parametrize("d, dtype, ok", [
+    (128, torch.bfloat16, True), (16, torch.bfloat16, True), (120, torch.bfloat16, False),
+    (8, torch.bfloat16, False), (128, torch.float32, True), (4, torch.float32, True),
+    (30, torch.float32, False), (250, torch.float32, False),
+])
+def test_stream_width_rule(d, dtype, ok):
+    """Rows are copied in 16-byte pieces and bf16 rows scored in tensor-core
+    steps of 16 columns: other widths are refused with the rule."""
+    from augmentedautoencoder_torch.ops import _cuda
+
+    if ok:
+        _cuda.check_stream_width(d, dtype)
+    else:
+        with pytest.raises(ValueError, match=f"multiple of {16 if dtype == torch.bfloat16 else 4}"):
+            _cuda.check_stream_width(d, dtype)
+
+
+def test_stream_binding_refuses_cpu_tensors():
+    from augmentedautoencoder_torch.ops import _cuda
+
+    slab = torch.zeros((2, 256, 128))
+    with pytest.raises(ValueError, match="CUDA"):
+        _cuda.codebook_topk_stream(torch.zeros((4, 128)), slab, 0, 256, 256, 1, 8)
