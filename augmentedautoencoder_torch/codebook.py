@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from .geometry.transform import matrices_from_quaternions, quaternions_from_matrices
-from .ops.nn_query import cosine_top1, cosine_topk, l2_normalize
+from .ops._cuda import stream_width
+from .ops.nn_query import cosine_top1, cosine_topk, l2_normalize, pad_columns
 
 EncodeFn = Callable[[torch.Tensor], torch.Tensor]  # (B,H,W,C) float in [0,1] -> (B, latent)
 
@@ -100,6 +101,15 @@ class Codebook:
             if embedding_normalized is not None
             else None
         )
+        # the top-1 kernel's operand: the same rows with zero columns up to
+        # the width it takes (the embedding itself when it has that width);
+        # the plain top-k queries use the embedding as it is
+        self._top1_operand = (
+            pad_columns(self.embedding_normalized,
+                        stream_width(self.embedding_normalized.shape[-1], torch.float32))
+            if self.embedding_normalized is not None
+            else None
+        )
         self.embed_obj_bbs = (
             np.asarray(embed_obj_bbs) if embed_obj_bbs is not None else None
         )
@@ -132,7 +142,7 @@ class Codebook:
         # reference precedence: upright applies only at top_n == 1; top_n > 1
         # returns the ranked matches with upright ignored
         if top_n == 1 and not upright:
-            _, idcs = cosine_top1(z, self.embedding_normalized)
+            _, idcs = cosine_top1(z, self._top1_operand)
             idcs = idcs.cpu().numpy()
         elif top_n == 1:
             _, idcs = cosine_topk(z, self.embedding_normalized, k=1, stride=self.num_cyclo)
@@ -149,7 +159,7 @@ class Codebook:
     def nearest_rotation_batch(self, x) -> np.ndarray:
         self._require_embedding()
         z = self._encode(self._prep(x))
-        _, idcs = cosine_top1(z, self.embedding_normalized)
+        _, idcs = cosine_top1(z, self._top1_operand)
         return self.viewsphere[idcs.cpu().numpy()]
 
     @torch.inference_mode()
@@ -319,7 +329,7 @@ class Codebook:
                 _, idcs = cosine_topk(z, self.embedding_normalized, k=1, stride=self.num_cyclo)
                 idcs = idcs.cpu().numpy()[:, 0]
             else:
-                _, idcs = cosine_top1(z, self.embedding_normalized)
+                _, idcs = cosine_top1(z, self._top1_operand)
                 idcs = idcs.cpu().numpy()
             Rs = self.viewsphere[idcs].copy()
             rendered_bbs = np.asarray(self.embed_obj_bbs[idcs], dtype=np.float64)

@@ -46,10 +46,6 @@
 //     last block of each source block to arrive (an arrival counter) writes
 //     the distances and indices.
 // Two launches per call, nothing else: the wrapper only allocates.
-//
-// nn_min_kernel below is the first design (one source point per thread,
-// operands prepared by PyTorch), kept only so that chip_smoke.py can time
-// the two designs in one run; the port does not call it.
 
 #include <cuda_runtime.h>
 
@@ -59,47 +55,6 @@
 
 namespace {
 
-// ---- the first design's search, kept for comparison
-constexpr int kThreads = 128;   // source points per block, one per thread
-constexpr int kTile = 1024;     // destination points per shared-memory tile
-
-__global__ void __launch_bounds__(kThreads)
-nn_min_kernel(const float* __restrict__ src, const float4* __restrict__ dst, int N,
-              float* __restrict__ out_min, int* __restrict__ out_idx) {
-  __shared__ float4 tile[kTile];
-
-  const int64_t lane = blockIdx.y;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = i < N;
-  const float* s = src + (lane * N + (active ? i : 0)) * 3;
-  const float sx = s[0], sy = s[1], sz = s[2];
-  const float4* d = dst + lane * N;
-
-  float best = INFINITY;
-  int best_j = 0;
-  for (int base = 0; base < N; base += kTile) {
-    const int count = min(kTile, N - base);
-    __syncthreads();  // the previous tile is consumed
-    for (int j = threadIdx.x; j < count; j += kThreads) tile[j] = d[base + j];
-    __syncthreads();
-#pragma unroll 8
-    for (int j = 0; j < count; ++j) {
-      const float4 q = tile[j];
-      const float score = __fadd_rn(
-          __fadd_rn(__fadd_rn(__fmul_rn(sx, q.x), __fmul_rn(sy, q.y)), __fmul_rn(sz, q.z)), q.w);
-      if (score < best) {
-        best = score;
-        best_j = base + j;
-      }
-    }
-  }
-  if (active) {
-    out_min[lane * N + i] = best;
-    out_idx[lane * N + i] = best_j;
-  }
-}
-
-// ---- the fused design
 constexpr int kNnThreads = 256;
 constexpr int kPts = 4;                            // source points per thread
 constexpr int kSrcPerBlock = kNnThreads * kPts;    // 1024
@@ -322,21 +277,6 @@ nn_search_kernel(const float* __restrict__ src, const float4* __restrict__ rows,
 }  // namespace
 
 extern "C" {
-
-// The first design's search (comparison only). src: (n, N, 3) f32, the centred
-// source points times -2; dst: (n, N) float4 (x, y, z, |d|^2) of the
-// centred destination points, 16-byte aligned. Writes out_min (n, N) f32
-// and out_idx (n, N) int32 on `stream`. Returns cudaGetLastError() after
-// the launch (0 on success).
-int aae_batched_nn_min(const void* src, const void* dst, int n, int N, void* out_min,
-                       void* out_idx, void* stream) {
-  if (n < 1 || n > 65535 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((N + kThreads - 1) / kThreads, n);
-  nn_min_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(src), static_cast<const float4*>(dst), N,
-      static_cast<float*>(out_min), static_cast<int*>(out_idx));
-  return static_cast<int>(cudaGetLastError());
-}
 
 // The whole nearest-neighbour function. src, dst: (n, N, 3) f32 clouds as
 // the caller holds them; split_len destinations per search block; inv_n

@@ -1,11 +1,10 @@
 """Build and bind the port's hand-written CUDA kernels.
 
 The sources are `augmentedautoencoder_torch/csrc/*.cu` (codebook_query.cu:
-the codebook top-k, in two designs; icp_nn.cu: the ICP nearest neighbour,
-the fused design and the first one kept for comparison). On first use they
-are compiled by `nvcc` for Hopper (sm_90a), one process per source, all
-started together, and linked into one shared library with a plain C
-interface under `build/aae_torch_kernels/<hash of the sources>/`. The
+the codebook top-1 and top-k; icp_nn.cu: the ICP nearest neighbour). On
+first use they are compiled by `nvcc` for Hopper (sm_90a), one process per
+source, all started together, and linked into one shared library with a
+plain C interface under `build/aae_torch_kernels/<hash of the sources>/`. The
 library is loaded with `ctypes`; nothing includes PyTorch's headers, so a
 build takes seconds. Nothing here runs at import time: the CPU tests import
 every module of the port on a machine without `nvcc` or a GPU.
@@ -34,7 +33,6 @@ LIB_NAME = "libaae_torch_kernels.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-Xcompiler", "-fPIC"]
 
-_TILE_ROWS = 256  # rows per block tile of aae_codebook_topk
 _MAX_D = 256
 _MAX_K = 32
 
@@ -43,6 +41,12 @@ STREAM_Q = 64  # queries per block (kStreamQ)
 STREAM_BLOCKS_PER_SM = 2
 _STREAM_TILE_BYTES = 16384  # row bytes per pipeline stage, about
 _STREAM_MAX_STAGES = 4
+
+# aae_codebook_top1_stream (csrc/codebook_query.cu)
+TOP1_Q = 64  # queries per block at most (kTop1MaxQ)
+TOP1_PAIRS = 16  # running (value, index) pairs a thread keeps (kTop1Pairs)
+_TOP1_TILE_BYTES = 32768  # row bytes per pipeline stage, about
+_THREADS = 256
 
 # aae_batched_nn (csrc/icp_nn.cu)
 NN_SRC_PER_BLOCK = 1024  # kNnThreads * kPts
@@ -134,18 +138,16 @@ def lib() -> ctypes.CDLL:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))
             p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-            handle.aae_codebook_topk.argtypes = [
-                p, p, i32, i32, i64, i32, i32, i32, i32, i32, i32, i32, i32,
-                p, p, p, p, p,
-            ]
-            handle.aae_codebook_topk.restype = i32
             handle.aae_codebook_topk_stream.argtypes = [
                 p, p, i32, i32, i64, i32, i32, i32, i32, i32, i32, i32, i32, i32,
                 p, p, p, p, p,
             ]
             handle.aae_codebook_topk_stream.restype = i32
-            handle.aae_batched_nn_min.argtypes = [p, p, i32, i32, p, p, p]
-            handle.aae_batched_nn_min.restype = i32
+            handle.aae_codebook_top1_stream.argtypes = [
+                p, p, i32, i32, i64, i32, i32, i32, i32, i32, i32, i32, i32, i32,
+                p, p, p, p,
+            ]
+            handle.aae_codebook_top1_stream.restype = i32
             handle.aae_batched_nn.argtypes = [
                 p, p, i32, i32, i32, ctypes.c_float, p, p, p, p, p, p, p,
             ]
@@ -187,8 +189,8 @@ def smem_limits(device_index: int) -> SmemLimits:
 
 
 def _check_topk_args(q, cb, obj, n_rows, k, name) -> int:
-    """Shared argument checks of the two codebook top-k launches; returns
-    the rows per plane."""
+    """Shared argument checks of the codebook top-1 and top-k launches;
+    returns the rows per plane."""
     if q.device.type != "cuda" or cb.device != q.device:
         raise ValueError(f"{name} needs CUDA tensors on one device, got {q.device}, {cb.device}")
     if cb.dtype not in (torch.float32, torch.bfloat16) or q.dtype != cb.dtype:
@@ -210,86 +212,6 @@ def _check_topk_args(q, cb, obj, n_rows, k, name) -> int:
     return rows_per_obj
 
 
-def codebook_topk(
-    q: torch.Tensor,
-    cb: torch.Tensor,
-    obj: int,
-    n_rows: int,
-    n_valid: int,
-    stride: int,
-    k: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch aae_codebook_topk of csrc/codebook_query.cu (the first
-    design; grouped_codebook_top1 and cosine_top1_cuda) on the current stream.
-
-    q: (B, D) normalized queries, already in cb's dtype. cb: (N, D) or
-    (O, N_pad, D), f32 or bf16, contiguous, on q's device. Scores rows
-    [0, n_rows) of plane `obj`; rows >= n_valid, and rows not a multiple of
-    `stride`, score -2. Returns (vals (B, k) f32, idcs (B, k) int32), best
-    first, ties to the lowest index. Does not synchronise.
-    """
-    rows_per_obj = _check_topk_args(q, cb, obj, n_rows, k, "codebook_topk")
-    b, d = q.shape
-    if b == 0:
-        return (
-            torch.empty((0, k), dtype=torch.float32, device=q.device),
-            torch.empty((0, k), dtype=torch.int32, device=q.device),
-        )
-
-    # ~2 blocks per SM in flight over all query chunks; whole tiles per block
-    sms = sm_count(q.device.index)
-    tiles = -(-n_rows // _TILE_ROWS)
-    q_chunks = -(-b // 8)
-    want = max(1, (2 * sms) // q_chunks)
-    tiles_per_block = -(-tiles // min(tiles, want))
-    n_parts = -(-tiles // tiles_per_block)
-
-    part_v = torch.empty((b, n_parts, k), dtype=torch.float32, device=q.device)
-    part_i = torch.empty((b, n_parts, k), dtype=torch.int32, device=q.device)
-    out_v = torch.empty((b, k), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((b, k), dtype=torch.int32, device=q.device)
-    rc = lib().aae_codebook_topk(
-        q.data_ptr(), cb.data_ptr(), int(cb.dtype == torch.bfloat16), int(obj),
-        int(rows_per_obj), int(n_rows), int(n_valid), int(stride), b, d, int(k),
-        tiles_per_block * _TILE_ROWS, n_parts,
-        part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _check(rc, "aae_codebook_topk launch")
-    return out_v, out_i
-
-
-def batched_nn_min(src: torch.Tensor, dst: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch aae_batched_nn_min of csrc/icp_nn.cu, the first design's
-    search, kept for comparison (chip_smoke.py), on the current stream.
-
-    src: (n, N, 3) f32, the centred source points times -2; dst: (n, N, 4)
-    f32 rows (x, y, z, |d|^2) of the centred destination points; both
-    contiguous on one CUDA device. Returns (min (n, N) f32, argmin (n, N)
-    int32) of ((sx*dx + sy*dy) + sz*dz) + |d|^2 over each lane's points,
-    ties to the lowest index. Does not synchronise.
-    """
-    if src.device.type != "cuda" or dst.device != src.device:
-        raise ValueError(f"batched_nn_min needs CUDA tensors on one device, got {src.device}, {dst.device}")
-    if src.dtype != torch.float32 or dst.dtype != torch.float32:
-        raise ValueError(f"batched_nn_min takes f32 (src {src.dtype}, dst {dst.dtype})")
-    if src.dim() != 3 or src.shape[2] != 3 or dst.shape != (src.shape[0], src.shape[1], 4):
-        raise ValueError(f"bad shapes src {tuple(src.shape)} dst {tuple(dst.shape)}")
-    if not (src.is_contiguous() and dst.is_contiguous()) or dst.data_ptr() % 16:
-        raise ValueError("batched_nn_min needs contiguous tensors and a 16-byte aligned dst")
-    n, N = src.shape[0], src.shape[1]
-    out_min = torch.empty((n, N), dtype=torch.float32, device=src.device)
-    out_idx = torch.empty((n, N), dtype=torch.int32, device=src.device)
-    if n == 0 or N == 0:
-        return out_min, out_idx
-    rc = lib().aae_batched_nn_min(
-        src.data_ptr(), dst.data_ptr(), n, N, out_min.data_ptr(), out_idx.data_ptr(),
-        torch.cuda.current_stream(src.device).cuda_stream,
-    )
-    _check(rc, "aae_batched_nn_min launch")
-    return out_min, out_idx
-
-
 class StreamPlan(NamedTuple):
     """Launch shape of aae_codebook_topk_stream."""
 
@@ -300,13 +222,26 @@ class StreamPlan(NamedTuple):
     scratch_words: int  # int32 words of one allocation: part_v, part_i, out_v, out_i
 
 
+def _width_step(dtype: torch.dtype) -> int:
+    return 16 if dtype == torch.bfloat16 else 4
+
+
+def stream_width(d: int, dtype: torch.dtype) -> int:
+    """The width, at least d, that the streaming kernels take for a `dtype`
+    codebook: the callers store their device copy with zero columns up to it
+    and pad the queries to match (zero columns add exact zeros to every
+    score)."""
+    step = _width_step(dtype)
+    return -(-d // step) * step
+
+
 def check_stream_width(d: int, dtype: torch.dtype) -> None:
-    """The streaming kernel copies whole rows in 16-byte pieces, and a bf16
+    """The streaming kernels copy whole rows in 16-byte pieces, and a bf16
     slab is scored in tensor-core steps of 16 columns."""
-    step = 16 if dtype == torch.bfloat16 else 4
+    step = _width_step(dtype)
     if d % step:
         raise ValueError(
-            f"grouped_codebook_topk on CUDA needs a latent width that is a multiple of {step} "
+            f"the CUDA codebook queries need a latent width that is a multiple of {step} "
             f"for a {dtype} codebook (got {d}): rows are copied in 16-byte pieces"
             + (" and scored in tensor-core steps of 16 columns" if step == 16 else "")
         )
@@ -354,8 +289,15 @@ def codebook_topk_stream(
     k: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the streaming top-k of csrc/codebook_query.cu on the current
-    stream: the same contract as `codebook_topk`, for rows of a multiple of
-    16 bytes. One allocation (outputs and scratch); does not synchronise."""
+    stream (grouped_codebook_topk).
+
+    q: (B, D) normalized queries, already in cb's dtype. cb: (N, D) or
+    (O, N_pad, D), f32 or bf16, contiguous, 16-byte aligned, on q's device;
+    D a multiple of 4 (f32) or 16 (bf16), see `stream_width`. Scores rows
+    [0, n_rows) of plane `obj`; rows >= n_valid, and rows not a multiple of
+    `stride`, score -2. Returns (vals (B, k) f32, idcs (B, k) int32), best
+    first, ties to the lowest index. One allocation (outputs and scratch);
+    does not synchronise."""
     rows_per_obj = _check_topk_args(q, cb, obj, n_rows, k, "codebook_topk_stream")
     b, d = q.shape
     check_stream_width(d, cb.dtype)
@@ -379,6 +321,118 @@ def codebook_topk_stream(
     )
     _check(rc, "aae_codebook_topk_stream launch")
     out = buf[2 * part:].view(2, b, k)
+    return out[0].view(torch.float32), out[1]
+
+
+class Top1Plan(NamedTuple):
+    """Launch shape of aae_codebook_top1_stream."""
+
+    rows_per_tile: int
+    stages: int
+    n_blocks: int
+    q_per_block: int
+    qpt: int  # queries per f32 scoring item (2 or 8)
+    smem_bytes: int
+
+
+def top1_smem_bytes(stages: int, rows_per_tile: int, row_bytes: int, qpb: int, d: int) -> int:
+    """csrc/codebook_query.cu top1_smem_bytes: ring, queries, one key per query."""
+    qpad = -(-qpb // 8) * 8
+    return stages * rows_per_tile * (row_bytes + 16) + qpad * (d + 8) * 4 + qpb * 8
+
+
+def _top1_rows_cap(qpb: int, qpt: int, elem_bytes: int) -> int:
+    """The most rows per tile for which a thread keeps at most TOP1_PAIRS
+    running pairs: f32 items are one row x qpt queries, `_THREADS` to a
+    pass; bf16 items are 16 rows x 8 queries, one per warp and pass."""
+    if elem_bytes == 2:
+        return (TOP1_PAIRS // 2) * (_THREADS // 32) * 16 // -(-qpb // 8) // 32 * 32
+    return (TOP1_PAIRS // qpt) * _THREADS // -(-qpb // qpt) // 32 * 32
+
+
+@lru_cache(maxsize=None)
+def plan_top1_stream(b: int, n_rows: int, d: int, elem_bytes: int, sms: int, smem: SmemLimits) -> Top1Plan:
+    """Tiles of whole rows of ~32 KB (a multiple of 32 rows, capped so that
+    a thread keeps at most TOP1_PAIRS running pairs) and up to 64 queries per
+    block, with as many ring stages (2-4) as fit STREAM_BLOCKS_PER_SM blocks
+    in an SM's shared memory; a persistent grid of STREAM_BLOCKS_PER_SM * sms
+    blocks per chunk of queries, never more blocks than tiles. Where 2
+    stages do not fit, the tiles shrink to 32 rows, then the blocks take
+    fewer queries (down to 8, halving); ValueError only if 8 queries of
+    32-row tiles do not fit."""
+    row_bytes = d * elem_bytes
+    budget = min(smem.per_block, smem.per_sm // STREAM_BLOCKS_PER_SM - smem.reserved)
+    qpb = min(b, TOP1_Q)
+    while True:
+        qpt = 2 if qpb <= 8 else 8
+        rows = max(32, min((_TOP1_TILE_BYTES // row_bytes) // 32 * 32, _top1_rows_cap(qpb, qpt, elem_bytes)))
+        while True:
+            stages = min(_STREAM_MAX_STAGES,
+                         (budget - top1_smem_bytes(0, rows, row_bytes, qpb, d)) // (rows * (row_bytes + 16)))
+            if stages >= 2:
+                n_blocks = min(-(-n_rows // rows), STREAM_BLOCKS_PER_SM * sms)
+                return Top1Plan(rows, stages, n_blocks, qpb, qpt,
+                                top1_smem_bytes(stages, rows, row_bytes, qpb, d))
+            if rows == 32:
+                break
+            rows = max(32, rows // 2 // 32 * 32)
+        if qpb <= 8:
+            raise ValueError(
+                f"codebook top-1 on CUDA: no 2-stage pipeline of {STREAM_BLOCKS_PER_SM} blocks per SM "
+                f"fits {budget} bytes of shared memory for {qpb} queries of width {d}"
+            )
+        qpb = max(8, qpb // 2)
+
+
+_top1_state = {}  # (device index, stream handle) -> int64 words, 0 between launches
+
+
+def _top1_state_words(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The top-1 kernel's state for launches on `stream`: one 64-bit key per
+    query and one arrival counter per query chunk, zeroed once (the only
+    device operation besides the launch, on a stream's first call or when a
+    call needs more words) and left 0 by every launch. Launches on one
+    stream run in order, so they share it safely."""
+    key = (device.index, stream)
+    buf = _top1_state.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 256),), dtype=torch.int64, device=device)
+        _top1_state[key] = buf
+    return buf
+
+
+def codebook_top1_stream(
+    q: torch.Tensor, cb: torch.Tensor, obj: int, n_rows: int, n_valid: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the streaming top-1 of csrc/codebook_query.cu on the current
+    stream (grouped_codebook_top1 and cosine_top1_cuda).
+
+    q: (B, D) normalized queries, already in cb's dtype. cb: (N, D) or
+    (O, N_pad, D), f32 or bf16, contiguous, 16-byte aligned, on q's device;
+    D a multiple of 4 (f32) or 16 (bf16), see `stream_width`. Scores rows
+    [0, n_rows) of plane `obj`; rows >= n_valid score -2. Returns (vals (B,)
+    f32, idcs (B,) int32): the first maximum. One allocation (the outputs),
+    one launch; does not synchronise."""
+    rows_per_obj = _check_topk_args(q, cb, obj, n_rows, 1, "codebook_top1_stream")
+    b, d = q.shape
+    check_stream_width(d, cb.dtype)
+    if cb.data_ptr() % 16:
+        raise ValueError("codebook_top1_stream needs a 16-byte aligned codebook")
+    if b == 0:
+        return (torch.empty((0,), dtype=torch.float32, device=q.device),
+                torch.empty((0,), dtype=torch.int32, device=q.device))
+    dev = q.device.index
+    plan = plan_top1_stream(b, n_rows, d, cb.element_size(), sm_count(dev), smem_limits(dev))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    state = _top1_state_words(q.device, stream, b + -(-b // plan.q_per_block))
+    out = torch.empty((2, b), dtype=torch.int32, device=q.device)
+    rc = lib().aae_codebook_top1_stream(
+        q.data_ptr(), cb.data_ptr(), int(cb.dtype == torch.bfloat16), int(obj),
+        int(rows_per_obj), int(n_rows), int(n_valid), b, d, plan.q_per_block, plan.qpt,
+        plan.rows_per_tile, plan.stages, plan.n_blocks,
+        state.data_ptr(), out.data_ptr(), out.data_ptr() + 4 * b, stream,
+    )
+    _check(rc, "aae_codebook_top1_stream launch")
     return out[0].view(torch.float32), out[1]
 
 

@@ -8,13 +8,15 @@ only that object's plane:
   * `grouped_codebook_topk` -- the ranked top-k, 1 <= k <= 32, with the
     `upright` stride mask (Pallas `grouped_codebook_topk`).
 
-On CUDA tensors each launches csrc/codebook_query.cu (top-1: the first
-port's `aae_codebook_topk`; top-k: the streaming `aae_codebook_topk_stream`,
-which takes a latent width that is a multiple of 16 in bf16, of 4 in f32)
-and counts the launch in its
-`launches` attribute; on CPU tensors each runs its plain version
-(`*_plain`), which follows the JAX function's formula. Padded rows
-(index >= n_valid) score -2 and never beat a true row.
+On CUDA tensors each launches csrc/codebook_query.cu (top-1: the streaming
+`aae_codebook_top1_stream`; top-k: the streaming `aae_codebook_topk_stream`)
+and counts the launch in its `launches` attribute; on CPU tensors each runs
+its plain version (`*_plain`), which follows the JAX function's formula.
+Padded rows (index >= n_valid) score -2 and never beat a true row. The
+kernels copy rows of a multiple of 16 bytes and score bf16 in steps of 16
+columns: callers store the slab with zero columns up to
+`_cuda.stream_width` (`pad_slab`), and every function here, plain or not,
+pads the queries with zero columns to the slab's width.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .nn_query import l2_normalize, topk_lowest_index
+from .nn_query import l2_normalize, pad_columns, topk_lowest_index
 
 Tensor = torch.Tensor
 
@@ -46,11 +48,26 @@ def stack_codebooks(codebooks, tile_n: int = _TILE_N) -> Tuple[np.ndarray, np.nd
     return out, lengths
 
 
+def pad_slab(slab: Tensor) -> Tensor:
+    """The slab with zero columns up to the width the CUDA kernels take for
+    its dtype (the slab itself when it has that width already): stored once,
+    where the device copy is made, after `stack_codebooks`."""
+    from ._cuda import stream_width
+
+    return pad_columns(slab, stream_width(slab.shape[-1], slab.dtype))
+
+
+def _queries(z: Tensor, codebooks: Tensor) -> Tensor:
+    """The kernels' query operand: normalized in f32, cast to the slab
+    dtype, zero columns up to the slab's width."""
+    return pad_columns(l2_normalize(z.float()).to(codebooks.dtype), codebooks.shape[-1])
+
+
 def _masked_cos(z: Tensor, codebooks: Tensor, obj_id: int, n_valid: int, stride: int = 1) -> Tensor:
     """(B, N_pad) f32 cosines against one plane: queries normalized in f32
     and cast to the slab dtype, products and sums in f32 (a bf16 slab is
     widened before the product), masked rows -2."""
-    q = l2_normalize(z.float()).to(codebooks.dtype)
+    q = _queries(z, codebooks)
     cos = q.float() @ codebooks[obj_id].float().T
     col = torch.arange(cos.shape[1], device=cos.device)
     valid = col < n_valid
@@ -86,20 +103,21 @@ def grouped_codebook_top1(
 ) -> Tuple[Tensor, Tensor]:
     """Top-1 for queries (B, D) that all share object `obj_id`.
 
-    codebooks: (O, N_pad, D) f32 or bf16, rows l2-normalized, pad rows zero.
+    codebooks: (O, N_pad, D') f32 or bf16, rows l2-normalized, pad rows
+    zero, D' >= the queries' width with zero columns beyond it (`pad_slab`).
     n_valid: this object's true length (None = N_pad). Returns
     (vals (B,) f32, idcs (B,) int32)."""
     if _device_check("grouped_codebook_top1", z, codebooks):
         return grouped_codebook_top1_plain(z, codebooks, obj_id, n_valid)
-    from ._cuda import codebook_topk
+    from . import _cuda
 
     n_pad = codebooks.shape[1]
-    q = l2_normalize(z.float()).to(codebooks.dtype).contiguous()
-    vals, idcs = codebook_topk(
-        q, codebooks, int(obj_id), n_pad, _n_valid(n_valid, codebooks), 1, 1
+    vals, idcs = _cuda.codebook_top1_stream(
+        _queries(z, codebooks).contiguous(), codebooks, int(obj_id), n_pad,
+        _n_valid(n_valid, codebooks),
     )
     grouped_codebook_top1.launches += 1
-    return vals[:, 0], idcs[:, 0]
+    return vals, idcs
 
 
 grouped_codebook_top1.launches = 0
@@ -139,19 +157,19 @@ def grouped_codebook_topk(
     """Ranked top-k for queries sharing object `obj_id`, 1 <= k <= 32
     (ValueError otherwise, as in the JAX package). `stride` keeps only rows
     with index % stride == 0 (`upright`). Returns (vals (B, k) f32,
-    idcs (B, k) int32), best first, ties to the lowest global index. On
-    CUDA the latent width must be a multiple of 16 in bf16 (tensor-core
-    steps of 16 columns) and of 4 in f32 (16-byte row copies); ValueError
-    otherwise."""
+    idcs (B, k) int32), best first, ties to the lowest global index. The
+    slab may hold zero columns beyond the queries' width (`pad_slab`); on
+    CUDA its width must be a multiple of 16 in bf16 (tensor-core steps of 16
+    columns) and of 4 in f32 (16-byte row copies), ValueError otherwise."""
     _check_k(k)
     if _device_check("grouped_codebook_topk", z, codebooks):
         return grouped_codebook_topk_plain(z, codebooks, obj_id, n_valid, k=k, stride=stride)
-    from ._cuda import codebook_topk_stream
+    from . import _cuda
 
     n_pad = codebooks.shape[1]
-    q = l2_normalize(z.float()).to(codebooks.dtype).contiguous()
-    vals, idcs = codebook_topk_stream(
-        q, codebooks, int(obj_id), n_pad, _n_valid(n_valid, codebooks), int(stride), k
+    vals, idcs = _cuda.codebook_topk_stream(
+        _queries(z, codebooks).contiguous(), codebooks, int(obj_id), n_pad,
+        _n_valid(n_valid, codebooks), int(stride), k,
     )
     grouped_codebook_topk.launches += 1
     return vals, idcs

@@ -5,9 +5,10 @@
     `upright` stride, TTA row means); the JAX package leaves them to XLA.
   * `cosine_top1_cuda` -- the single-codebook top-1 of the estimator path,
     counterpart of the Pallas `cosine_top1_pallas`: on a CUDA tensor it
-    launches csrc/codebook_query.cu with k = 1 (the (B, N) similarity
-    matrix never exists in device memory); on a CPU tensor it runs the plain
-    version `cosine_top1_plain`.
+    launches the streaming top-1 of csrc/codebook_query.cu (the (B, N)
+    similarity matrix never exists in device memory); on a CPU tensor it
+    runs the plain version `cosine_top1_plain`. Both take a codebook stored
+    with zero columns beyond the queries' width (`pad_columns`).
 
 Codebook rows are expected pre-normalized. Ranked results follow
 `lax.top_k`: best first, equal scores by the lower index.
@@ -25,6 +26,16 @@ Tensor = torch.Tensor
 def l2_normalize(z: Tensor, dim: int = -1, eps: float = 1e-12) -> Tensor:
     """z / |z| with eps on the SQUARED norm, as the JAX package computes it."""
     return z * torch.rsqrt(torch.clamp((z * z).sum(dim=dim, keepdim=True), min=eps))
+
+
+def pad_columns(x: Tensor, width: int) -> Tensor:
+    """x (..., D) with zero columns appended up to `width` (x itself when D
+    is `width`): queries meet a codebook stored at the CUDA kernels' width
+    (`_cuda.stream_width`). Zero columns add exact zeros to every score."""
+    d = x.shape[-1]
+    if d > width:
+        raise ValueError(f"width {d} is wider than the codebook's {width}")
+    return x if d == width else torch.nn.functional.pad(x, (0, width - d))
 
 
 def topk_lowest_index(scores: Tensor, k: int) -> Tuple[Tensor, Tensor]:
@@ -67,8 +78,9 @@ def cosine_topk(
 def cosine_top1_plain(z: Tensor, codebook: Tensor) -> Tuple[Tensor, Tensor]:
     """Plain version of the top-1 kernel, the formula of `cosine_top1_pallas`:
     f32 normalize, cast to the codebook dtype, f32 products and sums
-    (bf16 operands are widened first), first maximum wins."""
-    q = l2_normalize(z.float()).to(codebook.dtype)
+    (bf16 operands are widened first), first maximum wins. Queries are
+    padded with zero columns to the codebook's width."""
+    q = pad_columns(l2_normalize(z.float()).to(codebook.dtype), codebook.shape[-1])
     cos = q.float() @ codebook.float().T
     idcs = torch.argmax(cos, dim=1)
     vals = torch.gather(cos, 1, idcs[:, None])[:, 0]
@@ -77,6 +89,8 @@ def cosine_top1_plain(z: Tensor, codebook: Tensor) -> Tuple[Tensor, Tensor]:
 
 def cosine_top1_cuda(z: Tensor, codebook: Tensor) -> Tuple[Tensor, Tensor]:
     """Best match per query: (values (B,) f32, indices (B,) int32).
+    codebook: (N, D') f32 or bf16 rows, D' >= the queries' width, columns
+    beyond it zero.
 
     CUDA tensors launch the hand-written kernel (counted in
     `cosine_top1_cuda.launches`); CPU tensors run `cosine_top1_plain`."""
@@ -84,13 +98,13 @@ def cosine_top1_cuda(z: Tensor, codebook: Tensor) -> Tuple[Tensor, Tensor]:
         return cosine_top1_plain(z, codebook)
     if z.device.type != "cuda":
         raise ValueError(f"cosine_top1_cuda: unsupported device {z.device}")
-    from ._cuda import codebook_topk
+    from . import _cuda
 
-    q = l2_normalize(z.float()).to(codebook.dtype).contiguous()
+    q = pad_columns(l2_normalize(z.float()).to(codebook.dtype), codebook.shape[-1]).contiguous()
     n = codebook.shape[0]
-    vals, idcs = codebook_topk(q, codebook.contiguous(), 0, n, n, 1, 1)
+    vals, idcs = _cuda.codebook_top1_stream(q, codebook.contiguous(), 0, n, n)
     cosine_top1_cuda.launches += 1
-    return vals[:, 0], idcs[:, 0]
+    return vals, idcs
 
 
 cosine_top1_cuda.launches = 0

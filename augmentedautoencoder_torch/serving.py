@@ -9,7 +9,9 @@
     `grouped_codebook_top1` for k = 1, `grouped_codebook_topk` for the
     `topk_aggregate` / `topk_rescore` candidates (k <= 32) and for the
     `upright` top-1 (k = 1 with the num_cyclo stride). On CPU tensors the
-    same calls run their plain versions.
+    same calls run their plain versions. The slab is stored with zero
+    columns up to the width the kernels take (`pad_slab`), so any latent
+    width serves.
   * `submit()` enqueues the device work and a non-blocking copy of the
     (B[, k]) results into pinned host memory, and records a CUDA event;
     `retrieve()` waits on that event and finishes the pose math on the
@@ -45,6 +47,7 @@ from .ops.multi_codebook import (
     grouped_codebook_top1,
     grouped_codebook_topk,
     grouped_codebook_topk_plain,
+    pad_slab,
     stack_codebooks,
 )
 from .pose.estimator import AePoseEstimator, depth_crops_of, extract_square_patch_centered
@@ -125,7 +128,8 @@ class PoseServer:
             self._models[c] = model
             codebooks.append(self._est.all_codebooks[c].embedding_normalized.cpu().numpy())
         slab, lengths = stack_codebooks(codebooks)
-        self._slab = torch.as_tensor(slab).to(self.device, _SLAB_DTYPES[self.precision])
+        # one device copy, with zero columns up to the kernels' width
+        self._slab = pad_slab(torch.as_tensor(slab).to(_SLAB_DTYPES[self.precision])).to(self.device)
         self._lengths = [int(n) for n in lengths]
 
         self._query_k = max(self._est._topk_aggregate, self._est._topk_rescore, 1)

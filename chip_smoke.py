@@ -13,17 +13,21 @@ no jax. Phases, each fatal on failure:
                  ptxas resource report;
   3. kernels  -- each CUDA kernel against its plain PyTorch version on seeded
                  tensors at the serving shapes (92,232-row codebook; a
-                 (30, 94,208, 128) slab in f32 and bf16; B in {8, 64}; k in
-                 {1, 8, 32}; stride in {1, 36}; duplicated-row ties; masked
-                 rows; the ICP nearest neighbour at (8, 3000), the main
-                 path's shape, (24, 3000), (3, 3000) and 7 other shapes, with
-                 duplicated destination points and the JAX (1, 8) tie;
-                 CUDA's x / n against the f32 reciprocal). CUDA-event times
-                 of each port function whole and of its kernel launch alone,
-                 the plain version, one PyTorch library call computing the
-                 same function and, for B2 and B4, the first designs; the
-                 device rows of one B2 and one B4 call under torch.profiler
-                 (at most 2 launches, no PyTorch kernels);
+                 (30, 94,208, 128) slab in f32 and bf16; B in {8, 64} and,
+                 for the top-1, 65 (two query chunks); k in {1, 8, 32};
+                 stride in {1, 36}; duplicated-row ties; masked rows; top-1
+                 calls back to back and an all-zero latent; latent widths
+                 100 (B1-B3, operands stored with zero columns up to the
+                 kernels' width, against the plain versions on the unpadded
+                 ones) and 256 at B = 64 (B3); the ICP nearest neighbour at
+                 (8, 3000), the main path's shape, (24, 3000), (3, 3000) and
+                 7 other shapes, with duplicated destination points and the
+                 JAX (1, 8) tie; CUDA's x / n against the f32 reciprocal).
+                 CUDA-event times of each port function whole and of its
+                 kernel launch alone, the plain version and one PyTorch
+                 library call computing the same function; the device rows
+                 of one B1, one B2, one B3 and one B4 call under
+                 torch.profiler (at most 2 launches, no PyTorch kernels);
   4. serving  -- a 3-class workspace at the full width of
                  cfg_templates/train_template.cfg (128x128x3, filters
                  [128, 256, 512, 512], latent 128, 92,232-row codebooks) with
@@ -73,10 +77,12 @@ CODEBOOK_SOURCE = "augmentedautoencoder_torch/csrc/codebook_query.cu"
 NN_SOURCE = "augmentedautoencoder_torch/csrc/icp_nn.cu"
 MARGIN = 1e-5  # indices must agree where the plain ranking is not this close
 VAL_TOL = 1e-5  # |kernel - plain| for every returned score
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bandwidth and f32 outside
-# the tensor cores, the type every kernel here computes in
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bandwidth, f32 outside the
+# tensor cores (f32 operands) and dense bf16 on the tensor cores (bf16
+# operands, f32 accumulation)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 # B4's instruction floor: 6 f32 operations (no FMA), a compare and a select
 # per pair, at 132 SMs x 128 f32 lanes x ~2.0 GHz
 NN_INSTR_PER_PAIR = 8
@@ -196,28 +202,18 @@ def call_ms(fns, calls=25, rounds=6):
 
 def timed(name, cost, reps, **fns):
     """Times whole (the port's function from the user's inputs), launch
-    (the kernel's binding on operands already in its input form), plain,
-    library and any older design given (first_whole: the same wrapper
-    around the older binding, see `via`; first_launch) on the device, and
-    the whole functions per call on the host clock; logs them
-    and returns the record of the kernels' JSON line."""
+    (the kernel's binding on operands already in its input form), plain and
+    library on the device, and the whole function and the library call per
+    call on the host clock; logs them and returns the record of the
+    kernels' JSON line."""
     t = time_fns(fns, reps)
-    calls = call_ms({tag: fns[tag] for tag in ("whole", "library", "first_whole") if tag in fns})
+    calls = call_ms({tag: fns[tag] for tag in ("whole", "library") if tag in fns})
     log(f"  {name}: device " + ", ".join(f"{tag} {ms:.4f}" for tag, ms in t.items())
         + f" ms; per call (host clock) " + ", ".join(f"{tag} {ms:.4f}" for tag, ms in calls.items())
         + f" ms; bound {bound_ms(*cost)[0]:.4f} ms")
-    rec = {"shape": name, "ms": t["whole"], "launch_ms": t["launch"], "plain_ms": t["plain"],
-           "library_ms": t.get("library"), "call_ms": calls["whole"],
-           "library_call_ms": calls.get("library"), "n_bytes": cost[0], "flops": cost[1]}
-    if "first_whole" in t:
-        rec.update(first_ms=t["first_whole"], first_launch_ms=t["first_launch"], first_call_ms=calls["first_whole"])
-        verdict = {key: "faster" if rec[key] < rec["first_" + key] else "NOT faster"
-                   for key in ("launch_ms", "ms", "call_ms")}
-        log(f"  {name}: new design vs first design: launch {rec['launch_ms']:.4f} vs "
-            f"{rec['first_launch_ms']:.4f} ms ({verdict['launch_ms']}), whole {rec['ms']:.4f} vs "
-            f"{rec['first_ms']:.4f} ms ({verdict['ms']}), per call {rec['call_ms']:.4f} vs "
-            f"{rec['first_call_ms']:.4f} ms ({verdict['call_ms']})")
-    return rec
+    return {"shape": name, "ms": t["whole"], "launch_ms": t["launch"], "plain_ms": t["plain"],
+            "library_ms": t.get("library"), "call_ms": calls["whole"],
+            "library_call_ms": calls.get("library"), "n_bytes": cost[0], "flops": cost[1], "peak": cost[2]}
 
 
 def device_rows(fn, calls=4):
@@ -251,26 +247,10 @@ def show_rows(name, rows, allowed):
         raise AssertionError(f"{name}: {launches:g} device launches per call {rows}, want <= 2 of {allowed}")
 
 
-def via(name, binding, call):
-    """A function running call() with _cuda.<name> replaced by `binding`.
-    The port's wrappers look their binding up in _cuda at every call, so an
-    older design is timed through the same wrapper code as the new one."""
-    from augmentedautoencoder_torch.ops import _cuda
-
-    def run():
-        saved = getattr(_cuda, name)
-        setattr(_cuda, name, binding)
-        try:
-            return call()
-        finally:
-            setattr(_cuda, name, saved)
-
-    return run
-
-
-def bound_ms(n_bytes, flops):
-    """The least time the card could take: (ms, "bytes" or "operations")."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+def bound_ms(n_bytes, flops, peak):
+    """The least time the card could take: (ms, "bytes" or "operations"),
+    the operations at `peak` FLOP/s (the rate for their operands' type)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -295,6 +275,104 @@ def compare_topk(name, got, plain, ext_vals):
     return err
 
 
+def top1_checks(name, fn, plain_fn, z, rank_fn):
+    """A top-1 wrapper fn against its plain version on z, then on -z and z
+    issued back to back with no synchronisation between them (each launch
+    must leave its arrival counters reset for the next), and on an all-zero
+    latent (every score 0: row 0 wins). Returns max |dv|."""
+    import torch
+
+    err = compare_topk(name, fn(z), plain_fn(z), rank_fn(z))
+    neg, pos = fn(-z), fn(z)
+    err = max(err, compare_topk(f"{name} (-z, back to back)", neg, plain_fn(-z), rank_fn(-z)),
+              compare_topk(f"{name} (z, back to back)", pos, plain_fn(z), rank_fn(z)))
+    _, i0 = fn(torch.zeros_like(z))
+    if bool((i0 != 0).any()):
+        raise AssertionError(f"{name}: an all-zero latent returned rows {i0.tolist()}, want 0")
+    log(f"  {name}: ok, max|dv| {err:.2e}; back to back (-z, z): ok; all-zero latent -> row 0: ok")
+    return err
+
+
+def top1_target(name, rec, dtype, b):
+    """Logs a top-1 timing against its bound and, at B = 8, against the
+    design goal: the whole function within 2.5x of its byte bound (device,
+    cold L2)."""
+    import torch
+
+    bound, by = bound_ms(rec["n_bytes"], rec["flops"], rec["peak"])
+    goal = ""
+    if b == 8:
+        verdict = "met" if rec["ms"] <= 2.5 * bound else "NOT met"
+        goal = f"; goal <= 2.5x ({'0.035' if dtype == torch.float32 else '0.018'} ms): {verdict}"
+    log(f"  {name}: whole {rec['ms']:.4f} ms = {rec['ms'] / bound:.2f}x, launch alone "
+        f"{rec['launch_ms']:.4f} ms = {rec['launch_ms'] / bound:.2f}x the {bound:.4f} ms bound ({by}){goal}")
+
+
+def width_phase(n_rows=92_232, n_obj=2, seed=3):
+    """B1-B3 at latent widths the kernels do not copy as they are: the
+    operands stored with zero columns up to `_cuda.stream_width` (as the
+    server and the Codebook store them), unpadded queries, against the plain
+    versions on the UNPADDED operands (D = 100 in f32 and bf16; B3 also at
+    D = 256, B = 64, where 64 queries of a block do not fit next to two
+    stages and the plan takes fewer). Returns max |dv| per kernel."""
+    import torch
+
+    from augmentedautoencoder_torch.ops import _cuda
+    from augmentedautoencoder_torch.ops import multi_codebook as mc
+    from augmentedautoencoder_torch.ops import nn_query as nq
+    from augmentedautoencoder_torch.ops.nn_query import l2_normalize, pad_columns, topk_lowest_index
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_pad = -(-n_rows // 2048) * 2048
+    errs = {"cosine_top1_cuda": 0.0, "grouped_codebook_top1": 0.0, "grouped_codebook_topk": 0.0}
+
+    def ranking(z, plane, stride, k):
+        s = l2_normalize(z.float()).to(plane.dtype).float() @ plane.float().T
+        col = torch.arange(s.shape[1], device=dev)
+        s = torch.where(((col < n_rows) & (col % stride == 0))[None], s, torch.full_like(s, -2.0))
+        return topk_lowest_index(s, k + 1)[0]
+
+    for d, b, dtypes in ((100, 8, (torch.float32, torch.bfloat16)), (256, 64, (torch.float32, torch.bfloat16))):
+        cb32 = l2_normalize(torch.randn((n_rows, d), generator=gen, device=dev))
+        for dtype in dtypes:
+            tag = f"D={d} B={b} {str(dtype)[6:]}"
+            cb = cb32.to(dtype)
+            cbp = pad_columns(cb, _cuda.stream_width(d, dtype)).contiguous()
+            z = torch.randn((b, d), generator=gen, device=dev)
+            got = nq.cosine_top1_cuda(z, cbp)
+            err = compare_topk(f"B3 {tag}", got, nq.cosine_top1_plain(z, cb), ranking(z, cb, 1, 1))
+            errs["cosine_top1_cuda"] = max(errs["cosine_top1_cuda"], err)
+            plan = _cuda.plan_top1_stream(b, n_rows, cbp.shape[1], cbp.element_size(),
+                                          _cuda.sm_count(0), _cuda.smem_limits(0))
+            log(f"  B3 cosine_top1 {tag} (stored width {cbp.shape[1]}): ok, max|dv| {err:.2e} "
+                f"({plan.q_per_block} queries per block, {plan.rows_per_tile}-row tiles, {plan.stages} stages)")
+            if d == 256:
+                continue
+            slab = torch.zeros((n_obj, n_pad, d), dtype=dtype, device=dev)
+            slab[:, :n_rows] = cb
+            slab[0, :n_rows] = cb.flip(0)
+            slabp = mc.pad_slab(slab)
+            for obj in range(n_obj):
+                got = mc.grouped_codebook_top1(z, slabp, obj, n_rows)
+                err = compare_topk(f"B1 {tag}", got, mc.grouped_codebook_top1_plain(z, slab, obj, n_rows),
+                                   ranking(z, slab[obj], 1, 1))
+                errs["grouped_codebook_top1"] = max(errs["grouped_codebook_top1"], err)
+                for k, stride in ((8, 1), (8, 36), (1, 36)):
+                    got = mc.grouped_codebook_topk(z, slabp, obj, n_rows, k=k, stride=stride)
+                    plain = mc.grouped_codebook_topk_plain(z, slab, obj, n_rows, k=k, stride=stride)
+                    err = compare_topk(f"B2 {tag} k={k} stride={stride}", got, plain,
+                                       ranking(z, slab[obj], stride, k))
+                    errs["grouped_codebook_topk"] = max(errs["grouped_codebook_topk"], err)
+            log(f"  B1, B2 (k 8 and 1, stride 1 and 36) {tag} on a slab stored at width {slabp.shape[-1]}, "
+                f"planes 0 and 1: ok, max|dv| {errs['grouped_codebook_top1']:.2e}, "
+                f"{errs['grouped_codebook_topk']:.2e}")
+            del slab, slabp
+        del cb32, cb, cbp
+    torch.cuda.empty_cache()
+    return errs
+
+
 def library_topk(z, plane, k):
     """The library yardstick of B1-B3: one matmul and torch.topk over the
     plane's rows (in the plane's dtype; a strided view for `upright`)."""
@@ -306,11 +384,13 @@ def library_topk(z, plane, k):
 
 
 def query_cost(z, cb, n_rows, k):
-    """(bytes, flops) a codebook query must move and compute: the plane's
-    n_rows rows and the queries read once, (B, k) values and indices
-    written; 2 * B * n_rows * D f32 operations."""
+    """(bytes, flops, peak FLOP/s) of a codebook query: the plane's n_rows
+    rows and the queries read once, (B, k) values and indices written;
+    2 * B * n_rows * D operations, at the f32 rate for an f32 codebook and
+    the bf16 tensor-core rate for a bf16 one."""
     b, d = z.shape
-    return n_rows * d * cb.element_size() + b * d * 4 + b * k * 8, 2 * b * n_rows * d
+    peak = BF16_FLOPS if cb.element_size() == 2 else F32_FLOPS
+    return n_rows * d * cb.element_size() + b * d * 4 + b * k * 8, 2 * b * n_rows * d, peak
 
 
 def kernel_phase(n_rows=92_232, n_obj=30, d=128, objs=(0, 17, 29), bs=(8, 64), reps=20):
@@ -343,26 +423,29 @@ def kernel_phase(n_rows=92_232, n_obj=30, d=128, objs=(0, 17, 29), bs=(8, 64), r
     def prep(z, cb):  # the kernels' query operand
         return l2_normalize(z.float()).to(cb.dtype).contiguous()
 
-    # -- B3: single-codebook top-1 (estimator path)
+    # -- B3: single-codebook top-1 (estimator path); B = 65 runs two query chunks
     cb32 = rows(n_rows)
     for dtype in (torch.float32, torch.bfloat16):
         cb = cb32.to(dtype)
-        for b in bs:
+        for b in (*bs, 65):
             z = torch.randn((b, d), generator=gen, device=dev)
-            got = nq.cosine_top1_cuda(z, cb)
-            plain = nq.cosine_top1_plain(z, cb)
             name = f"B3 cosine_top1 N={n_rows} B={b} {str(dtype)[6:]}"
-            err = compare_topk(name, got, plain, ranking(z, cb, n_rows, 1, 1))
+            err = top1_checks(name, lambda x: nq.cosine_top1_cuda(x, cb), lambda x: nq.cosine_top1_plain(x, cb),
+                              z, lambda x: ranking(x, cb, n_rows, 1, 1))
             errs["cosine_top1_cuda"] = max(errs["cosine_top1_cuda"], err)
-            log(f"  {name}: ok, max|dv| {err:.2e}")
+            if b not in bs:
+                continue
             q = prep(z, cb)
             rec = timed(name, query_cost(z, cb, n_rows, 1), reps,
                         whole=lambda: nq.cosine_top1_cuda(z, cb),
-                        launch=lambda: _cuda.codebook_topk(q, cb, 0, n_rows, n_rows, 1, 1),
+                        launch=lambda: _cuda.codebook_top1_stream(q, cb, 0, n_rows, n_rows),
                         plain=lambda: nq.cosine_top1_plain(z, cb),
                         library=lambda: library_topk(z, cb, 1))
+            top1_target(name, rec, dtype, b)
             if dtype == torch.float32 and b == 8:
                 records["cosine_top1_cuda"] = rec
+                show_rows(name, device_rows(lambda: _cuda.codebook_top1_stream(q, cb, 0, n_rows, n_rows)),
+                          ("top1_stream_kernel",))
     # ties: copies of each query's best row at a lower index must win
     z = torch.randn((8, d), generator=gen, device=dev)
     best = nq.cosine_top1_plain(z, cb32)[1].long()
@@ -386,21 +469,23 @@ def kernel_phase(n_rows=92_232, n_obj=30, d=128, objs=(0, 17, 29), bs=(8, 64), r
             for obj in (objs if b == 8 else objs[1:2]):
                 z = torch.randn((b, d), generator=gen, device=dev)
                 q = prep(z, slab)
-                if b == 8:
-                    name = f"B1 grouped_top1 obj={obj} B=8 {tag}"
-                    got = mc.grouped_codebook_top1(z, slab, obj, n_rows)
-                    plain = mc.grouped_codebook_top1_plain(z, slab, obj, n_rows)
-                    err = compare_topk(name, got, plain, ranking(z, slab[obj], n_rows, 1, 1))
-                    errs["grouped_codebook_top1"] = max(errs["grouped_codebook_top1"], err)
-                    log(f"  {name}: ok, max|dv| {err:.2e}")
-                    if obj == objs[1]:
-                        rec = timed(name, query_cost(z, slab, n_rows, 1), reps,
-                                    whole=lambda: mc.grouped_codebook_top1(z, slab, obj, n_rows),
-                                    launch=lambda: _cuda.codebook_topk(q, slab, obj, n_pad, n_rows, 1, 1),
-                                    plain=lambda: mc.grouped_codebook_top1_plain(z, slab, obj, n_rows),
-                                    library=lambda: library_topk(z, slab[obj, :n_rows], 1))
-                        if dtype == torch.float32:
-                            records["grouped_codebook_top1"] = rec
+                name = f"B1 grouped_top1 obj={obj} B={b} {tag}"
+                err = top1_checks(name, lambda x: mc.grouped_codebook_top1(x, slab, obj, n_rows),
+                                  lambda x: mc.grouped_codebook_top1_plain(x, slab, obj, n_rows), z,
+                                  lambda x: ranking(x, slab[obj], n_rows, 1, 1))
+                errs["grouped_codebook_top1"] = max(errs["grouped_codebook_top1"], err)
+                if obj == objs[1]:
+                    rec = timed(name, query_cost(z, slab, n_rows, 1), reps,
+                                whole=lambda: mc.grouped_codebook_top1(z, slab, obj, n_rows),
+                                launch=lambda: _cuda.codebook_top1_stream(q, slab, obj, n_pad, n_rows),
+                                plain=lambda: mc.grouped_codebook_top1_plain(z, slab, obj, n_rows),
+                                library=lambda: library_topk(z, slab[obj, :n_rows], 1))
+                    top1_target(name, rec, dtype, b)
+                    if dtype == torch.float32 and b == 8:
+                        records["grouped_codebook_top1"] = rec
+                        show_rows(name, device_rows(
+                            lambda: _cuda.codebook_top1_stream(q, slab, obj, n_pad, n_rows)),
+                            ("top1_stream_kernel",))
                 for k in (1, 8, 32):
                     for stride in (1, 36):
                         name = f"B2 grouped_topk obj={obj} B={b} k={k} stride={stride} {tag}"
@@ -412,15 +497,12 @@ def kernel_phase(n_rows=92_232, n_obj=30, d=128, objs=(0, 17, 29), bs=(8, 64), r
                         # timed: the recipes' shapes (agg8; upright top-1 at B = 8)
                         if obj != objs[1] or (k, stride) not in ((8, 1), (1, 36)) or (b > 8 and k == 1):
                             continue
-                        whole = lambda: mc.grouped_codebook_topk(z, slab, obj, n_rows, k=k, stride=stride)
                         rec = timed(
                             name, query_cost(z, slab, n_rows, k), reps,
-                            whole=whole,
+                            whole=lambda: mc.grouped_codebook_topk(z, slab, obj, n_rows, k=k, stride=stride),
                             launch=lambda: _cuda.codebook_topk_stream(q, slab, obj, n_pad, n_rows, stride, k),
                             plain=lambda: mc.grouped_codebook_topk_plain(z, slab, obj, n_rows, k=k, stride=stride),
-                            library=lambda: library_topk(z, slab[obj, :n_rows:stride], k),
-                            first_whole=via("codebook_topk_stream", _cuda.codebook_topk, whole),
-                            first_launch=lambda: _cuda.codebook_topk(q, slab, obj, n_pad, n_rows, stride, k))
+                            library=lambda: library_topk(z, slab[obj, :n_rows:stride], k))
                         if (b, k, stride, dtype) == (8, 8, 1, torch.bfloat16):
                             records["grouped_codebook_topk"] = rec
                             show_rows(name, device_rows(
@@ -457,22 +539,6 @@ def kernel_phase(n_rows=92_232, n_obj=30, d=128, objs=(0, 17, 29), bs=(8, 64), r
     del slab32, slab, masked, m
     torch.cuda.empty_cache()
     return errs, records
-
-
-def first_batched_nn(src, dst):
-    """The first design of batched_nn_cuda's body, for comparison only, in
-    place of the `_cuda.batched_nn` binding (see `via`): the operands
-    centred by PyTorch, the search kernel (aae_batched_nn_min), the
-    distances by PyTorch. The shape check is the wrapper's."""
-    import torch
-
-    from augmentedautoencoder_torch.ops import _cuda, icp_nn
-
-    mu = icp_nn.tree_mean(dst, 1)[:, None]
-    s, d = src - mu, dst - mu
-    rows = torch.cat([d, icp_nn.sum3(d * d)[..., None]], dim=-1).contiguous()
-    min_score, idx = _cuda.batched_nn_min((-2.0 * s).contiguous(), rows)
-    return icp_nn._distances(s, min_score), idx
 
 
 def nn_phase(reps=20):
@@ -533,18 +599,13 @@ def nn_phase(reps=20):
         log(f"  {name}: ok, indices equal, max|d dist| 0 ({splits} destination splits of {split_len})")
         if N != 3000:
             continue
-        s, sp, d, dsq = icp_nn._operands(src, dst)
-        k_in = (sp.contiguous(), torch.cat([d, dsq[..., None]], dim=-1).contiguous())
         # 3 multiplies and 3 adds a pair; read src and dst, write dist and idx
-        cost = (n * N * 6 * 4 + n * N * 8, 6 * n * N * N)
-        whole = lambda: icp_nn.batched_nn_cuda(src, dst)
+        cost = (n * N * 6 * 4 + n * N * 8, 6 * n * N * N, F32_FLOPS)
         rec = timed(name, cost, reps,
-                    whole=whole,
+                    whole=lambda: icp_nn.batched_nn_cuda(src, dst),
                     launch=lambda: _cuda.batched_nn(src, dst),
                     plain=lambda: icp_nn.batched_nn_torch(src, dst),
-                    library=lambda: library(src, dst),
-                    first_whole=via("batched_nn", first_batched_nn, whole),
-                    first_launch=lambda: _cuda.batched_nn_min(*k_in))
+                    library=lambda: library(src, dst))
         # worked out from assumed rates, not measured: logged, not in the kernels line
         floor = 1e3 * n * N * N * NN_INSTR_PER_PAIR / F32_INSTR_PER_S
         log(f"  {name}: instruction floor {floor:.4f} ms ({NN_INSTR_PER_PAIR} f32 instructions a pair "
@@ -1092,6 +1153,8 @@ def main() -> int:
     log(f"phase 3: kernels vs plain versions (values within {VAL_TOL}; indices equal where "
         f"the plain ranking's margin exceeds {MARGIN}; B4 identical; times: median of 20, cold L2)")
     errs, records = kernel_phase()
+    for name, err in width_phase().items():
+        errs[name] = max(errs[name], err)
     errs["batched_nn_cuda"], records["batched_nn_cuda"] = nn_phase()
     with open(TEMPLATE) as fh:
         template = fh.read()
@@ -1113,7 +1176,7 @@ def main() -> int:
         ("batched_nn_cuda", NN_SOURCE, "augmentedautoencoder_tpu/ops/icp_nn.py:165", depth["launches"]),
     ):
         rec = dict(records[name])
-        bound, bound_by = bound_ms(rec.pop("n_bytes"), rec.pop("flops"))
+        bound, bound_by = bound_ms(rec.pop("n_bytes"), rec.pop("flops"), rec.pop("peak"))
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": errs[name],

@@ -237,3 +237,202 @@ def test_stream_binding_refuses_cpu_tensors():
     slab = torch.zeros((2, 256, 128))
     with pytest.raises(ValueError, match="CUDA"):
         _cuda.codebook_topk_stream(torch.zeros((4, 128)), slab, 0, 256, 256, 1, 8)
+
+
+# ------------------------------------------- latent widths the kernels pad
+@pytest.mark.parametrize("d", [100, 102])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("fn", ["top1", "topk"])
+def test_padded_width_matches_pallas(fn, bf16, d):
+    """A slab stored with zero columns up to the kernels' width
+    (`pad_slab`: 100 stays 100 in f32, 102 -> 104; both -> 112 in bf16)
+    and unpadded queries give the JAX functions' results on the unpadded
+    slab: zero columns add exact zeros."""
+    cbs = _codebooks([600, 900], d=d, seed=d, dups=[(1, 4, 256), (1, 8, 512)])
+    slab, lengths = _slab(cbs)
+    z = np.random.RandomState(d).randn(6, d).astype(np.float32)
+    z[0] = cbs[1][4]
+    jslab = jnp.asarray(slab, jnp.bfloat16 if bf16 else jnp.float32)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    padded = tmc.pad_slab(torch.from_numpy(slab).to(dtype))
+    assert padded.shape == slab.shape[:2] + (_cuda.stream_width(d, dtype),)
+    assert padded.shape[-1] % (16 if bf16 else 4) == 0 and padded.shape[-1] - d < (16 if bf16 else 4)
+    assert not padded[..., d:].any()
+    args = (jnp.asarray(z), jslab, jnp.asarray(1, jnp.int32), jnp.asarray(lengths[1], jnp.int32))
+    if fn == "top1":
+        want_v, want_i = _interpret(jmc.grouped_codebook_top1, *args, tile_n=TILE)
+        got_v, got_i = tmc.grouped_codebook_top1(torch.from_numpy(z), padded, 1, int(lengths[1]))
+    else:
+        want_v, want_i = _interpret(jmc.grouped_codebook_topk, *args, k=8, stride=4, tile_n=TILE)
+        got_v, got_i = tmc.grouped_codebook_topk(torch.from_numpy(z), padded, 1, int(lengths[1]), k=8, stride=4)
+    np.testing.assert_array_equal(got_i.numpy(), want_i)
+    np.testing.assert_allclose(got_v.numpy(), want_v, atol=ATOL, rtol=0)
+
+
+def test_pad_slab_keeps_a_slab_of_the_kernels_width():
+    slab = torch.zeros((2, 256, 128), dtype=torch.bfloat16)
+    assert tmc.pad_slab(slab) is slab
+
+
+# ------------------------------------------- the streaming top-1's host side
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b", [8, 64])
+@pytest.mark.parametrize("d", [128, 256])
+def test_top1_plan_fits_the_card(dtype, b, d):
+    """plan_top1_stream at the serving shapes (94,208 rows): tiles of a
+    multiple of 32 rows, 2-4 ring stages, two blocks per SM in the H100's
+    shared memory, at most TOP1_PAIRS running pairs a thread and a
+    persistent grid of 2 * 132 blocks per query chunk."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    p = _cuda.plan_top1_stream(b, 94208, d, elem, 132, H100_SMEM)
+    assert p.rows_per_tile % 32 == 0 and 2 <= p.stages <= 4
+    assert 2 * (p.smem_bytes + 1024) <= 233472 and p.smem_bytes <= 232448
+    assert p.smem_bytes == _cuda.top1_smem_bytes(p.stages, p.rows_per_tile, d * elem, p.q_per_block, d)
+    assert p.qpt == (2 if p.q_per_block <= 8 else 8)
+    if elem == 2:
+        slots = -(-(p.rows_per_tile // 16) * -(-p.q_per_block // 8) // 8)
+        assert slots * 2 <= _cuda.TOP1_PAIRS
+    else:
+        slots = -(-p.rows_per_tile * -(-p.q_per_block // p.qpt) // 256)
+        assert slots * p.qpt <= _cuda.TOP1_PAIRS
+    assert p.n_blocks == min(-(-94208 // p.rows_per_tile), 2 * 132)
+    assert p.q_per_block == min(b, _cuda.TOP1_Q) or d == 256
+    if b == 8:  # the serving shape: one chunk, ~32 KB tiles, 3 stages
+        assert p.q_per_block == 8 and p.stages == 3 and p.rows_per_tile * d * elem == 32768
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b", [1, 3, 8, 24, 64, 65, 200])
+def test_top1_plan_serves_every_width_the_first_design_served(dtype, b):
+    """The first design served every latent width up to 256 at any B: the
+    plan never raises there (widths padded to the kernels' step)."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    for d in range(1, 257):
+        w = _cuda.stream_width(d, dtype)
+        p = _cuda.plan_top1_stream(b, 92232, w, elem, 132, H100_SMEM)
+        assert p.stages >= 2 and 2 * (p.smem_bytes + 1024) <= 233472
+
+
+def test_top1_plan_takes_fewer_queries_where_the_ring_does_not_fit():
+    """D 256 in f32 at B 64: two stages do not fit beside 64 queries, so the
+    top-1 plan takes 32 queries per block (two chunks); the top-k plan
+    still refuses this shape (B2's open gap)."""
+    p = _cuda.plan_top1_stream(64, 94208, 256, 4, 132, H100_SMEM)
+    assert (p.q_per_block, p.stages, p.rows_per_tile) == (32, 2, 32)
+    with pytest.raises(ValueError, match="no 2-stage pipeline"):
+        _cuda.plan_topk_stream(64, 94208, 256, 4, 32, 132, H100_SMEM)
+
+
+def test_top1_binding_refuses_cpu_tensors():
+    slab = torch.zeros((2, 256, 128))
+    with pytest.raises(ValueError, match="CUDA"):
+        _cuda.codebook_top1_stream(torch.zeros((4, 128)), slab, 0, 256, 256)
+
+
+# ------------------------------------------- the streaming top-1's merge rule
+def _top1_key(v, i):
+    """csrc/codebook_query.cu top1_key: the value's bits in float order
+    (-0.0 keyed as +0.0) above the complemented index."""
+    u = np.asarray(v, np.float32).view(np.uint32).astype(np.uint64)
+    u = np.where(u == 0x80000000, 0, u)
+    hi = np.where(u & 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+    return (hi << np.uint64(32)) | (~np.asarray(i, np.uint64) & np.uint64(0xFFFFFFFF))
+
+
+def _top1_unkey(key):
+    hi = key >> np.uint64(32)
+    u = np.where(hi & 0x80000000, hi & 0x7FFFFFFF, ~hi & 0xFFFFFFFF)
+    idx = (~key & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+    return u.astype(np.uint32).view(np.float32), idx
+
+
+def keyed_block_top1(scores, n_valid, rows_per_tile, n_blocks):
+    """Plain model of aae_codebook_top1_stream's split and merge: rows >=
+    n_valid score -2; tile t goes to block t % n_blocks; each block keeps
+    the first maximum of its rows (the threads' running pairs and the
+    block's reduction order by (value desc, index asc)), keyed; the blocks
+    meet in a maximum of keys in any order (here the last block first).
+    scores: (B, n_rows) f32 tensor -> (values, indices)."""
+    b, n_rows = scores.shape
+    col = torch.arange(n_rows)
+    masked = torch.where(col[None] < n_valid, scores, torch.full_like(scores, -2.0))
+    n_tiles = -(-n_rows // rows_per_tile)
+    keys = np.zeros(b, np.uint64)
+    for blk in reversed(range(n_blocks)):
+        cols = torch.cat([col[t * rows_per_tile:(t + 1) * rows_per_tile] for t in range(blk, n_tiles, n_blocks)])
+        sub = masked[:, cols]
+        j = torch.argmax(sub, dim=1)
+        v = torch.gather(sub, 1, j[:, None])[:, 0]
+        keys = np.maximum(keys, _top1_key(v.numpy(), cols[j].numpy()))
+    return _top1_unkey(keys)
+
+
+def test_top1_key_orders_like_the_first_maximum_and_round_trips():
+    vals = np.array([-np.inf, -2.0, -1e-30, -0.0, 0.0, 1e-30, 0.5, 1.0, np.inf], np.float32)
+    keys = _top1_key(vals, np.full(len(vals), 7))
+    assert np.all(np.diff(keys[[0, 1, 2, 4, 5, 6, 7, 8]].astype(np.float64)) > 0)
+    assert keys[3] == keys[4]  # -0.0 and +0.0 are equal, as argmax has them
+    # among equal values the lower index has the larger key
+    assert _top1_key(np.float32(0.25), 3) > _top1_key(np.float32(0.25), 4) > _top1_key(np.float32(0.2), 0)
+    idx = np.array([0, 1, 5, 92231, 2**31 - 1, 17, 3, 2, 1])
+    got_v, got_i = _top1_unkey(_top1_key(vals, idx))
+    assert np.array_equal(got_i, idx)
+    assert np.array_equal(got_v, vals)  # -0.0 comes back as +0.0, which equals it
+    assert np.array_equal(np.signbit(got_v), np.signbit(vals) & (vals != 0))
+
+
+@pytest.mark.parametrize("case", ["dups_straddle_blocks", "signed_zeros", "masked_block", "ragged_tail",
+                                  "plain_scores_at_the_plan"])
+def test_top1_split_merge_equals_the_unsplit_first_maximum(case):
+    rng = np.random.RandomState(7)
+    n_valid = None
+    if case == "dups_straddle_blocks":
+        # each row's maximum repeated in several blocks, on both sides of tile edges
+        scores = rng.uniform(-1, 0.5, (3, 640)).astype(np.float32)
+        scores[:, [31, 32, 95, 96, 600]] = 0.9
+        scores[1, [5, 37]] = 0.95  # block 0 and block 1 hold the tie
+        rows, blocks = 32, 4
+    elif case == "signed_zeros":
+        # -0.0 before +0.0 and +0.0 before -0.0, in different blocks
+        scores = -np.abs(rng.randn(3, 256)).astype(np.float32) - 0.1
+        scores[0, [40, 100]] = [-0.0, 0.0]
+        scores[1, [33, 200]] = [0.0, -0.0]
+        scores[2, [70, 71]] = [-0.0, -0.0]
+        rows, blocks = 32, 3
+    elif case == "masked_block":
+        # every true score negative; block 3's tiles all lie at or past n_valid
+        scores = -rng.uniform(0.1, 1.0, (4, 640)).astype(np.float32)
+        scores[:, 96:] = 5.0  # what masked rows hold must not matter
+        n_valid, rows, blocks = 96, 32, 4
+    elif case == "ragged_tail":
+        scores = rng.randn(2, 75).astype(np.float32)
+        scores[:, 70] = 9.0
+        rows, blocks = 32, 3
+    else:
+        # the f32 plan's tiles and blocks on a 132-SM card for this plane
+        d, n = 100, 5000
+        cb = rng.randn(n, d).astype(np.float32)
+        cb /= np.linalg.norm(cb, axis=1, keepdims=True)
+        cb[4000] = cb[10]
+        z = rng.randn(8, d).astype(np.float32)
+        z[0] = cb[10]
+        scores = z / np.linalg.norm(z, axis=1, keepdims=True) @ cb.T
+        n_valid = 4999
+        plan = _cuda.plan_top1_stream(8, n, _cuda.stream_width(d, torch.float32), 4, 132, H100_SMEM)
+        rows, blocks = plan.rows_per_tile, plan.n_blocks
+        assert blocks > 1
+    t = torch.from_numpy(scores)
+    n_valid = t.shape[1] if n_valid is None else n_valid
+    col = torch.arange(t.shape[1])
+    masked = torch.where(col[None] < n_valid, t, torch.full_like(t, -2.0))
+    want_i = torch.argmax(masked, dim=1)
+    want_v = torch.gather(masked, 1, want_i[:, None])[:, 0]
+    got_v, got_i = keyed_block_top1(t, n_valid, rows, blocks)
+    assert np.array_equal(got_i, want_i.numpy())
+    assert np.array_equal(got_v, want_v.numpy())  # value equality: -0.0 == +0.0
+    if case == "signed_zeros":
+        assert got_i.tolist() == [40, 33, 70]
+    if case == "dups_straddle_blocks":
+        assert got_i.tolist() == [31, 5, 31]
+    if case == "plain_scores_at_the_plan":
+        assert got_i[0] == 10

@@ -76,6 +76,32 @@ def test_top1_bf16_codebook_matches_pallas():
     np.testing.assert_allclose(got_v.numpy(), want_v, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("d", [100, 102])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_top1_padded_width_matches_pallas(bf16, d):
+    """A codebook stored with zero columns up to the kernels' width (100
+    stays 100 in f32, 102 -> 104; both -> 112 in bf16) and unpadded queries
+    give `cosine_top1_pallas`'s result on the unpadded codebook."""
+    from augmentedautoencoder_torch.ops import _cuda
+
+    z, cb = _data(700, d, 8, seed=d, dup_rows=[(3, 300)])
+    z[1] = cb[3]
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    want_v, want_i = _pallas_top1(z, jnp.asarray(cb, jnp.bfloat16 if bf16 else jnp.float32))
+    width = _cuda.stream_width(d, dtype)
+    padded = tnq.pad_columns(torch.from_numpy(cb).to(dtype), width)
+    assert padded.shape == (700, width) and not padded[:, d:].any()
+    got_v, got_i = tnq.cosine_top1_cuda(torch.from_numpy(z), padded)
+    np.testing.assert_array_equal(got_i.numpy(), want_i)
+    np.testing.assert_allclose(got_v.numpy(), want_v, atol=ATOL, rtol=0)
+    assert got_i[1] == 3
+
+
+def test_pad_columns_refuses_a_narrower_codebook():
+    with pytest.raises(ValueError, match="wider"):
+        tnq.pad_columns(torch.zeros((2, 10)), 8)
+
+
 @pytest.mark.parametrize("k", [1, 5, 20])
 def test_cosine_similarity_topk_matches_xla(k):
     z, cb = _data(500, 32, 4, seed=k, dup_rows=[(10, 11), (40, 400)])
