@@ -1,0 +1,60 @@
+"""`python -m augmentedautoencoder_torch.cli.ae_embed <[group/]experiment>
+[--at_step N] [--batch_size B]` -- build the codebook (port of
+augmentedautoencoder_tpu/cli/ae_embed.py).
+
+Renders every embedding view on the host, encodes the views on the GPU and
+re-saves the experiment's `chkpt-<step>.pt` with the normalized embedding
+and, with EMBED_BB, the per-view rendered boxes inside (reference
+auto_pose/ae/ae_embed.py:53-93). Runs on the GPU: without CUDA it raises
+unless `main` is given device="cpu".
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Dict, Optional, Sequence
+
+import torch
+
+from .. import factory
+from ..codebook import Codebook
+from ..training.checkpoint import CheckpointManager
+from . import split_experiment_name
+
+
+def main(argv: Optional[Sequence[str]] = None, device=None, profile: Optional[Dict[str, float]] = None) -> str:
+    """Embed the experiment's codebook on `device` (default: the GPU);
+    returns the checkpoint path. `profile` receives build_embedding's time
+    split."""
+    parser = argparse.ArgumentParser(prog="ae_embed")
+    parser.add_argument("experiment_name")
+    parser.add_argument("--at_step", type=int, default=None)
+    parser.add_argument("--batch_size", type=int, default=None)
+    args = parser.parse_args(argv)
+
+    device = torch.device(device) if device is not None else factory.default_device()
+    experiment_name, experiment_group = split_experiment_name(args.experiment_name)
+    cfg, _ = factory.load_experiment_config(experiment_name, experiment_group)
+    if cfg.model == "dsprites":
+        raise NotImplementedError(
+            "ae_embed: the dsprites codebook comes with the port's training slice (ROADMAP A.8)"
+        )
+    cfg, paths, model, _ = factory.restore_experiment(
+        experiment_name, experiment_group, args.at_step, device, precision="float32"
+    )
+    dataset = factory.build_dataset(paths["dataset_path"], cfg)
+    batch_size = args.batch_size or max(cfg.batch_size, 256)
+    print(f"embedding {dataset.embedding_size} views (batch {batch_size}) on {device} ...")
+    embedding, obj_bbs = Codebook.build_embedding(
+        factory.make_encode_fn(model), dataset.render_embedding_image_batch, dataset.embedding_size,
+        batch_size, device=device, profile=profile,
+    )
+    path = CheckpointManager(paths["checkpoint_dir"]).add_codebook(
+        embedding, obj_bbs if cfg.embed_bb else None, step=args.at_step
+    )
+    print(f"codebook ({embedding.shape[0]} x {embedding.shape[1]}) saved into {path}")
+    return path
+
+
+if __name__ == "__main__":
+    main()

@@ -2,7 +2,9 @@
 (port of augmentedautoencoder_tpu/codebook.py).
 
 Rows are l2-normalized latent codes in viewsphere order (row i ->
-viewsphere[i]). Queries run on the codebook's device: the top-1 through
+viewsphere[i]), built by `Codebook.build_embedding`, which streams rendered
+view batches through the encoder on the device. Queries run on the
+codebook's device: the top-1 through
 `ops.cosine_top1` (the CUDA kernel on a GPU), ranked top-k with `upright`
 stride or TTA means through the plain `ops.cosine_topk`. The pose math
 (projective translation, off-center rotation correction, candidate
@@ -11,7 +13,10 @@ aggregation) is the JAX package's numpy code, unchanged.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple, Union
+import contextlib
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -19,6 +24,7 @@ import torch
 from .geometry.transform import matrices_from_quaternions, quaternions_from_matrices
 from .ops._cuda import stream_width
 from .ops.nn_query import cosine_top1, cosine_topk, l2_normalize, pad_columns
+from .utils import batch_iteration_indices
 
 EncodeFn = Callable[[torch.Tensor], torch.Tensor]  # (B,H,W,C) float in [0,1] -> (B, latent)
 
@@ -26,6 +32,19 @@ EncodeFn = Callable[[torch.Tensor], torch.Tensor]  # (B,H,W,C) float in [0,1] ->
 def normalize_uint8(x: torch.Tensor) -> torch.Tensor:
     """uint8 image batch -> float32 in [0, 1] on x's device."""
     return x.to(torch.float32) / 255.0
+
+
+@contextlib.contextmanager
+def f32_without_tf32():
+    """cuDNN convolutions and matmuls in full f32 inside the block (cuDNN
+    defaults to TF32 for f32 convolutions); the previous flags come back
+    after it."""
+    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
 
 
 # Deterministic multi-crop TTA pattern (relative bbox-center offsets);
@@ -113,6 +132,100 @@ class Codebook:
         self.embed_obj_bbs = (
             np.asarray(embed_obj_bbs) if embed_obj_bbs is not None else None
         )
+
+    # ------------------------------------------------------------- build
+    @staticmethod
+    def build_embedding(
+        encode_fn: EncodeFn,
+        render_batch_fn: Callable[[int, int], Tuple[np.ndarray, np.ndarray]],
+        embedding_size: int,
+        batch_size: int = 256,
+        progress: bool = True,
+        device: Optional[Union[str, torch.device]] = None,
+        profile: Optional[Dict[str, float]] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Stream rendered view batches through the encoder on `device` (the
+        GPU unless given "cpu"); returns (embedding_normalized (N, latent)
+        f32, obj_bbs (N, 4)).
+
+        Batch i + 1 renders on a worker thread while batch i goes to the
+        device: uint8 through one pinned host buffer (non-blocking copy; the
+        buffer is refilled only after the copy that read it has run), the
+        ragged tail padded with zeros to the batch shape, normalized and
+        encoded in f32 without TF32. The codes stay on the device until the
+        last batch and are read back once; rows are normalized in f32 on the
+        host, as the JAX package does. `profile`, if given, receives seconds:
+        render (summed on the render thread), wait (host blocked on the next
+        batch), h2d and encode (device, CUDA events; 0 on the CPU), readback
+        and total."""
+        from .factory import default_device  # factory imports this module
+
+        device = torch.device(device) if device is not None else default_device()
+        spans = list(batch_iteration_indices(embedding_size, batch_size))
+        if not spans:
+            raise ValueError(
+                f"embedding_size={embedding_size} yields no view batches — "
+                "check MIN_N_VIEWS/NUM_CYCLO in the [Embedding] config"
+            )
+        cuda = device.type == "cuda"
+        times = {"render": 0.0, "wait": 0.0, "h2d": 0.0, "encode": 0.0, "readback": 0.0}
+        t_start = time.perf_counter()
+
+        def render(a, e):
+            t0 = time.perf_counter()
+            out = render_batch_fn(a, e)
+            times["render"] += time.perf_counter() - t0  # one render thread
+            return out
+
+        host = codes = copied = None
+        events = []  # (before copy, after copy, after encode) per batch, read at the end
+        bb_chunks = []
+        with f32_without_tf32(), torch.inference_mode(), ThreadPoolExecutor(1) as pool:
+            pending = pool.submit(render, *spans[0])
+            for i, (a, e) in enumerate(spans):
+                if progress and a % (batch_size * 16) == 0:
+                    print(f"embedding {a}/{embedding_size}")
+                t0 = time.perf_counter()
+                batch, obj_bbs = pending.result()
+                times["wait"] += time.perf_counter() - t0
+                if i + 1 < len(spans):
+                    pending = pool.submit(render, *spans[i + 1])
+                x = np.asarray(batch)
+                if x.dtype != np.uint8:
+                    x = x.astype(np.float32)
+                if host is None:
+                    dtype = torch.uint8 if x.dtype == np.uint8 else torch.float32
+                    host = torch.zeros((batch_size,) + x.shape[1:], dtype=dtype, pin_memory=cuda)
+                if copied is not None:
+                    copied.synchronize()  # the previous copy has read the buffer
+                host[: e - a] = torch.from_numpy(x)
+                host[e - a:] = 0  # the ragged tail padded to the batch shape
+                if cuda:
+                    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                    ev[0].record()
+                xd = host.to(device, non_blocking=True)
+                if cuda:
+                    ev[1].record()
+                    copied = ev[1]
+                    events.append(ev)
+                z = encode_fn(xd)
+                if cuda:
+                    ev[2].record()
+                if codes is None:
+                    codes = torch.empty((embedding_size, z.shape[1]), dtype=torch.float32, device=device)
+                codes[a:e] = z[: e - a]
+                bb_chunks.append(np.asarray(obj_bbs))
+        t0 = time.perf_counter()
+        z_all = codes.cpu().numpy()
+        times["readback"] = time.perf_counter() - t0
+        for ev in events:
+            times["h2d"] += ev[0].elapsed_time(ev[1]) / 1e3
+            times["encode"] += ev[1].elapsed_time(ev[2]) / 1e3
+        z_all /= np.linalg.norm(z_all, axis=1, keepdims=True)
+        times["total"] = time.perf_counter() - t_start
+        if profile is not None:
+            profile.update(times, batches=len(spans), views=embedding_size)
+        return z_all.astype(np.float32), np.concatenate(bb_chunks)
 
     # ------------------------------------------------------------- queries
     def _require_embedding(self):

@@ -207,7 +207,7 @@ topk_merge_wide_kernel(const float* __restrict__ part_v, const int* __restrict__
   }
 }
 
-constexpr int kStreamQ = 64;    // queries per block: every plane tile is read once for these
+constexpr int kStreamQ = 64;    // queries per block at most: every plane tile is read once for these
 constexpr int kQPT = 4;         // queries per scoring item (one row x 4 queries per thread)
 constexpr int kMaxDevices = 64;
 
@@ -323,25 +323,28 @@ __device__ __forceinline__ void score_tile_bf16(const unsigned char* tile, int r
 }
 
 // One persistent block walks plane tiles blockIdx.x, blockIdx.x +
-// gridDim.x, ...: 16-byte cp.async copies keep `Stages - 1` tiles in flight
-// while the block scores the current one for all of its (up to 64)
-// queries with f32 FMAs, then each warp offers the tile's scores to the
-// running top-k lists of its queries (warp w owns queries w, w + 8, ...).
-// The lists live in shared memory between tiles and in the warp's
-// registers while it offers (lane j holds entry j), so one copy of the
-// offer code serves every query.
+// gridDim.x, ... for its chunk of q_per_block queries (blockIdx.y; up to
+// 64, fewer where a wide latent leaves no room for two ring stages beside
+// 64 queries' scores and lists): 16-byte cp.async copies keep `Stages - 1`
+// tiles in flight while the block scores the current one for all of its
+// queries, then each warp offers the tile's scores to the running top-k
+// lists of its queries (warp w owns queries w, w + 8, ...). Tiles are a
+// multiple of 16 rows (the bf16 mma's row step); a warp offers 32 rows at
+// a time, so a 16-row tile leaves lanes 16-31 idle. The lists live in
+// shared memory between tiles and in the warp's registers while it offers
+// (lane j holds entry j), so one copy of the offer code serves every query.
 template <typename T, int Stages>
 __global__ void __launch_bounds__(kThreads, 2)
 topk_stream_kernel(const T* __restrict__ q, const T* __restrict__ cb, int obj,
                    int64_t rows_per_obj, int n_rows, int n_valid, int stride, int B, int D,
-                   int k, int rows_per_tile, int n_tiles, float* __restrict__ part_v,
-                   int* __restrict__ part_i) {
+                   int k, int q_per_block, int rows_per_tile, int n_tiles,
+                   float* __restrict__ part_v, int* __restrict__ part_i) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int qbase = blockIdx.y * kStreamQ;
-  const int qb = min(kStreamQ, B - qbase);
+  const int qbase = blockIdx.y * q_per_block;
+  const int qb = min(q_per_block, B - qbase);
   const int qpad = (qb + 7) / 8 * 8;
   const int row_bytes = D * static_cast<int>(sizeof(T));
   const int row_stride = row_bytes + 16;
@@ -416,7 +419,7 @@ topk_stream_kernel(const T* __restrict__ q, const T* __restrict__ cb, int obj,
       top.i = lane < k ? list_i[qi * k + lane] : INT_MAX;
       for (int r0 = 0; r0 < R; r0 += 32) {
         const int g = t * R + r0 + lane;
-        const bool in = g < n_rows;
+        const bool in = r0 + lane < R && g < n_rows;
         top.offer_many(in ? sc[qi * R + r0 + lane] : -INFINITY, g, in, k, lane);
       }
       if (lane < k) {
@@ -437,8 +440,9 @@ topk_stream_kernel(const T* __restrict__ q, const T* __restrict__ cb, int obj,
 
 template <typename T, int Stages>
 int launch_stream(const void* q, const void* cb, int obj, int64_t rows_per_obj, int n_rows,
-                  int n_valid, int stride, int B, int D, int k, int rows_per_tile, int n_blocks,
-                  size_t smem, cudaStream_t s, void* part_v, void* part_i) {
+                  int n_valid, int stride, int B, int D, int k, int q_per_block,
+                  int rows_per_tile, int n_blocks, size_t smem, cudaStream_t s, void* part_v,
+                  void* part_i) {
   auto kernel = topk_stream_kernel<T, Stages>;
   // the attribute is set once per device and size (a runtime call per launch
   // costs host time on a launch-bound path)
@@ -453,10 +457,11 @@ int launch_stream(const void* q, const void* cb, int obj, int64_t rows_per_obj, 
     if (dev < kMaxDevices) set_for[dev] = smem;
   }
   const int n_tiles = (n_rows + rows_per_tile - 1) / rows_per_tile;
-  const dim3 grid(n_blocks, (B + kStreamQ - 1) / kStreamQ);
+  const dim3 grid(n_blocks, (B + q_per_block - 1) / q_per_block);
   kernel<<<grid, kThreads, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(cb), obj,
                                       rows_per_obj, n_rows, n_valid, stride, B, D, k,
-                                      rows_per_tile, n_tiles, static_cast<float*>(part_v),
+                                      q_per_block, rows_per_tile, n_tiles,
+                                      static_cast<float*>(part_v),
                                       static_cast<int*>(part_i));
   return static_cast<int>(cudaGetLastError());
 }
@@ -464,18 +469,18 @@ int launch_stream(const void* q, const void* cb, int obj, int64_t rows_per_obj, 
 template <typename T>
 int launch_stream_stages(int stages, const void* q, const void* cb, int obj,
                          int64_t rows_per_obj, int n_rows, int n_valid, int stride, int B, int D,
-                         int k, int rows_per_tile, int n_blocks, size_t smem, cudaStream_t s,
-                         void* part_v, void* part_i) {
+                         int k, int q_per_block, int rows_per_tile, int n_blocks, size_t smem,
+                         cudaStream_t s, void* part_v, void* part_i) {
   switch (stages) {
     case 2:
       return launch_stream<T, 2>(q, cb, obj, rows_per_obj, n_rows, n_valid, stride, B, D, k,
-                                 rows_per_tile, n_blocks, smem, s, part_v, part_i);
+                                 q_per_block, rows_per_tile, n_blocks, smem, s, part_v, part_i);
     case 3:
       return launch_stream<T, 3>(q, cb, obj, rows_per_obj, n_rows, n_valid, stride, B, D, k,
-                                 rows_per_tile, n_blocks, smem, s, part_v, part_i);
+                                 q_per_block, rows_per_tile, n_blocks, smem, s, part_v, part_i);
     case 4:
       return launch_stream<T, 4>(q, cb, obj, rows_per_obj, n_rows, n_valid, stride, B, D, k,
-                                 rows_per_tile, n_blocks, smem, s, part_v, part_i);
+                                 q_per_block, rows_per_tile, n_blocks, smem, s, part_v, part_i);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -816,30 +821,34 @@ extern "C" {
 // apart (a 2-D codebook is obj 0); q and cb share one element type, f32
 // (is_bf16 = 0) or bf16 (is_bf16 = 1); rows >= n_valid, and rows not a
 // multiple of `stride`, score -2. Computed by topk_stream_kernel (n_blocks
-// persistent blocks, `stages` tiles of rows_per_tile rows, a multiple of
-// 32) and merged by topk_merge_wide_kernel. The row width D * sizeof(element) must be
+// persistent blocks for each chunk of q_per_block queries, `stages` tiles
+// of rows_per_tile rows, a multiple of 16) and merged by
+// topk_merge_wide_kernel. The row width D * sizeof(element) must be
 // a multiple of 16 bytes and the slab 16-byte aligned. part_v/part_i hold
 // B * n_blocks * k entries; out_v/out_i (B, k). Returns cudaGetLastError()
 // after the launches (0 on success).
 int aae_codebook_topk_stream(const void* q, const void* cb, int is_bf16, int obj,
                              int64_t rows_per_obj, int n_rows, int n_valid, int stride, int B,
-                             int D, int k, int rows_per_tile, int stages, int n_blocks,
-                             void* part_v, void* part_i, void* out_v, void* out_i, void* stream) {
+                             int D, int k, int q_per_block, int rows_per_tile, int stages,
+                             int n_blocks, void* part_v, void* part_i, void* out_v, void* out_i,
+                             void* stream) {
   const int row_bytes = D * (is_bf16 ? 2 : 4);
   if (B < 1 || D < 1 || D > kMaxD || row_bytes % 16 || (is_bf16 && D % 16) || k < 1 ||
-      k > kMaxK || n_rows < 1 ||
-      n_blocks < 1 || rows_per_tile < 32 || rows_per_tile % 32 ||
+      k > kMaxK || n_rows < 1 || q_per_block < 1 || q_per_block > kStreamQ ||
+      n_blocks < 1 || rows_per_tile < 16 || rows_per_tile % 16 ||
       reinterpret_cast<uintptr_t>(cb) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = stream_smem_bytes(stages, rows_per_tile, row_bytes, std::min(B, kStreamQ), D, k);
+  const size_t smem =
+      stream_smem_bytes(stages, rows_per_tile, row_bytes, std::min(B, q_per_block), D, k);
   const int rc = is_bf16
       ? launch_stream_stages<__nv_bfloat16>(stages, q, cb, obj, rows_per_obj, n_rows, n_valid,
-                                            stride, B, D, k, rows_per_tile, n_blocks, smem, s,
-                                            part_v, part_i)
+                                            stride, B, D, k, q_per_block, rows_per_tile,
+                                            n_blocks, smem, s, part_v, part_i)
       : launch_stream_stages<float>(stages, q, cb, obj, rows_per_obj, n_rows, n_valid, stride, B,
-                                    D, k, rows_per_tile, n_blocks, smem, s, part_v, part_i);
+                                    D, k, q_per_block, rows_per_tile, n_blocks, smem, s, part_v,
+                                    part_i);
   if (rc != 0) return rc;
   topk_merge_wide_kernel<<<B, kThreads, 0, s>>>(
       static_cast<const float*>(part_v), static_cast<const int*>(part_i), n_blocks, k,

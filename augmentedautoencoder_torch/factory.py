@@ -39,6 +39,14 @@ def default_device() -> torch.device:
     return torch.device("cuda")
 
 
+def build_dataset(dataset_path: str, cfg: TrainConfig, renderer=None, render_workers: int = 0):
+    """The experiment's `data.dataset.Dataset` (its view sphere and embedding
+    renders; the renderer is built on first use)."""
+    from .data.dataset import Dataset  # data.dataset imports pose, which imports this module
+
+    return Dataset(dataset_path, cfg, renderer=renderer, render_workers=render_workers)
+
+
 def make_encode_fn(model: AAE):
     """Deterministic encoder forward on the model's device: (B,H,W,C) float
     in [0,1] or uint8 (normalized on the device) -> (B, latent) f32."""

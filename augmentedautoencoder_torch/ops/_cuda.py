@@ -37,7 +37,8 @@ _MAX_D = 256
 _MAX_K = 32
 
 # aae_codebook_topk_stream (csrc/codebook_query.cu)
-STREAM_Q = 64  # queries per block (kStreamQ)
+STREAM_Q = 64  # queries per block at most (kStreamQ)
+STREAM_MIN_ROWS = 16  # the bf16 mma's row step: tiles are a multiple of it
 STREAM_BLOCKS_PER_SM = 2
 _STREAM_TILE_BYTES = 16384  # row bytes per pipeline stage, about
 _STREAM_MAX_STAGES = 4
@@ -139,7 +140,7 @@ def lib() -> ctypes.CDLL:
             handle = ctypes.CDLL(str(build()))
             p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
             handle.aae_codebook_topk_stream.argtypes = [
-                p, p, i32, i32, i64, i32, i32, i32, i32, i32, i32, i32, i32, i32,
+                p, p, i32, i32, i64, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32,
                 p, p, p, p, p,
             ]
             handle.aae_codebook_topk_stream.restype = i32
@@ -218,6 +219,7 @@ class StreamPlan(NamedTuple):
     rows_per_tile: int
     stages: int
     n_blocks: int
+    q_per_block: int
     smem_bytes: int
     scratch_words: int  # int32 words of one allocation: part_v, part_i, out_v, out_i
 
@@ -258,25 +260,36 @@ def stream_smem_bytes(stages: int, rows_per_tile: int, row_bytes: int, qb: int, 
 def plan_topk_stream(
     b: int, n_rows: int, d: int, elem_bytes: int, k: int, sms: int, smem: SmemLimits
 ) -> StreamPlan:
-    """Tiles of whole rows of ~16 KB (a multiple of 32 rows), as many ring
-    stages (2-4) as fit STREAM_BLOCKS_PER_SM blocks in an SM's shared
-    memory; a persistent grid of STREAM_BLOCKS_PER_SM * sms blocks, never
-    more blocks than tiles. ValueError where 2 stages do not fit (a latent
-    width of about 200 or more with many queries)."""
+    """Tiles of whole rows of ~16 KB (a multiple of 32 rows) and up to
+    STREAM_Q queries per block, with as many ring stages (2-4) as fit
+    STREAM_BLOCKS_PER_SM blocks in an SM's shared memory; a persistent grid
+    of STREAM_BLOCKS_PER_SM * sms blocks per chunk of queries, never more
+    blocks than tiles. Where 2 stages do not fit (a wide latent with many
+    queries and a large k), the tiles halve down to STREAM_MIN_ROWS rows,
+    then the blocks take half as many queries (more chunks), as the top-1
+    plan does; ValueError only if one query of 16-row tiles does not fit."""
     row_bytes = d * elem_bytes
-    rows = max(32, (_STREAM_TILE_BYTES // row_bytes) // 32 * 32)
-    qb = min(b, STREAM_Q)
     budget = min(smem.per_block, smem.per_sm // STREAM_BLOCKS_PER_SM - smem.reserved)
-    fixed = stream_smem_bytes(0, rows, row_bytes, qb, d, k)
-    stages = min(_STREAM_MAX_STAGES, (budget - fixed) // (rows * (row_bytes + 16)))
-    if stages < 2:
-        raise ValueError(
-            f"grouped_codebook_topk on CUDA: no 2-stage pipeline of {STREAM_BLOCKS_PER_SM} blocks "
-            f"per SM fits {budget} bytes of shared memory for {qb} queries of width {d}, k={k}"
-        )
-    n_blocks = min(-(-n_rows // rows), STREAM_BLOCKS_PER_SM * sms)
-    scratch = 2 * b * n_blocks * k + 2 * b * k
-    return StreamPlan(rows, stages, n_blocks, stream_smem_bytes(stages, rows, row_bytes, qb, d, k), scratch)
+    qpb = min(b, STREAM_Q)
+    while True:
+        rows = max(32, (_STREAM_TILE_BYTES // row_bytes) // 32 * 32)
+        while True:
+            fixed = stream_smem_bytes(0, rows, row_bytes, qpb, d, k)
+            stages = min(_STREAM_MAX_STAGES, (budget - fixed) // (rows * (row_bytes + 16)))
+            if stages >= 2:
+                n_blocks = min(-(-n_rows // rows), STREAM_BLOCKS_PER_SM * sms)
+                scratch = 2 * b * n_blocks * k + 2 * b * k
+                return StreamPlan(rows, stages, n_blocks, qpb,
+                                  stream_smem_bytes(stages, rows, row_bytes, qpb, d, k), scratch)
+            if rows == STREAM_MIN_ROWS:
+                break
+            rows = max(STREAM_MIN_ROWS, rows // 2)
+        if qpb == 1:
+            raise ValueError(
+                f"grouped_codebook_topk on CUDA: no 2-stage pipeline of {STREAM_BLOCKS_PER_SM} blocks "
+                f"per SM fits {budget} bytes of shared memory for one query of width {d}, k={k}"
+            )
+        qpb = max(1, qpb // 2)
 
 
 def codebook_topk_stream(
@@ -315,7 +328,7 @@ def codebook_topk_stream(
     rc = lib().aae_codebook_topk_stream(
         q.data_ptr(), cb.data_ptr(), int(cb.dtype == torch.bfloat16), int(obj),
         int(rows_per_obj), int(n_rows), int(n_valid), int(stride), b, d, int(k),
-        plan.rows_per_tile, plan.stages, plan.n_blocks,
+        plan.q_per_block, plan.rows_per_tile, plan.stages, plan.n_blocks,
         base, base + 4 * part, base + 8 * part, base + 8 * part + 4 * b * k,
         torch.cuda.current_stream(q.device).cuda_stream,
     )

@@ -1,16 +1,22 @@
-"""Mesh loading: PLY (ascii + binary) and OBJ (port of
-augmentedautoencoder_tpu/renderer/mesh.py without its vertex cache and LOD).
+"""Mesh loading: PLY (ascii + binary) and OBJ, with md5-keyed vertex caches
+and an LOD decimation (port of augmentedautoencoder_tpu/renderer/mesh.py).
 
 The reference loads `reconst` models with a python PLY parser and `cad`
-models via pyassimp (auto_pose/meshrenderer/gl_utils/geometry.py:17-41,
-inout.py:8-154); PLY and OBJ are parsed natively here, with no assimp.
+models via pyassimp, caching the unpacked vertex arrays as md5-hashed files
+(auto_pose/meshrenderer/gl_utils/geometry.py:17-41, inout.py:8-154); PLY
+and OBJ are parsed natively here, with no assimp. The `.npz` cache has the
+JAX package's key and fields, so either package reads the other's; the port
+writes it atomically (a temporary file, then a rename), so a reader never
+sees a half-written cache.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 import struct
+import threading
 from typing import Optional
 
 import numpy as np
@@ -166,10 +172,32 @@ def load_obj(path: str) -> Mesh:
     return Mesh(vertices=v, normals=compute_vertex_normals(v, f), faces=f, colors=c)
 
 
-# ---------------------------------------------------------------- load
+# ---------------------------------------------------------------- cache
 
-def load_mesh(path: str, vertex_scale: float = 1.0) -> Mesh:
-    """Load a .ply or .obj mesh, vertices scaled by `vertex_scale`."""
+def load_mesh(
+    path: str,
+    vertex_scale: float = 1.0,
+    cache_dir: Optional[str] = None,
+    recalculate_normals: bool = False,
+) -> Mesh:
+    """Load a .ply or .obj mesh, vertices scaled by `vertex_scale`, through
+    an optional md5-keyed `.npz` cache in `cache_dir` (the JAX package's key:
+    md5 of path + str(vertex_scale) + str(recalculate_normals))."""
+    cache_file = None
+    if cache_dir:
+        key = hashlib.md5(
+            (path + str(vertex_scale) + str(recalculate_normals)).encode()
+        ).hexdigest()
+        cache_file = os.path.join(cache_dir, key + ".npz")
+        if os.path.exists(cache_file):
+            with np.load(cache_file) as data:
+                return Mesh(
+                    vertices=data["vertices"],
+                    normals=data["normals"],
+                    faces=data["faces"],
+                    colors=data["colors"] if data["has_colors"] else None,
+                )
+
     ext = os.path.splitext(path)[1].lower()
     if ext == ".ply":
         mesh = load_ply(path)
@@ -177,5 +205,108 @@ def load_mesh(path: str, vertex_scale: float = 1.0) -> Mesh:
         mesh = load_obj(path)
     else:
         raise ValueError(f"unsupported mesh format: {path}")
+
     mesh.vertices = mesh.vertices * vertex_scale
+    if recalculate_normals:
+        mesh.normals = compute_vertex_normals(mesh.vertices, mesh.faces)
+
+    if cache_file:
+        os.makedirs(cache_dir, exist_ok=True)
+        tmp = f"{cache_file}.{os.getpid()}.{threading.get_ident()}.tmp"
+        with open(tmp, "wb") as fh:  # a file object: np.savez adds no suffix
+            np.savez(
+                fh,
+                vertices=mesh.vertices,
+                normals=mesh.normals,
+                faces=mesh.faces,
+                colors=mesh.colors if mesh.colors is not None else np.zeros((0, 3)),
+                has_colors=mesh.colors is not None,
+            )
+        os.replace(tmp, cache_file)  # atomic: a concurrent reader sees all or nothing
     return mesh
+
+
+# ---------------------------------------------------------------- LOD
+
+def decimate_mesh(mesh: Mesh, target_faces: int) -> Mesh:
+    """Uniform-grid vertex-clustering decimation (the JAX package's LOD for
+    its offline renders; the reference has no LOD path).
+
+    The codebook embed renders 92k views of a mesh whose triangles are
+    mostly sub-pixel at render scale, so rasterization cost is per-face
+    setup; clustering vertices on a regular grid and collapsing degenerate
+    faces cuts the face count with no visible change at that resolution.
+
+    Deterministic: new vertices are the mean of their cluster (colors
+    averaged the same way, normals recomputed area-weighted). A mesh with
+    <= target_faces faces is returned unchanged.
+    """
+    if len(mesh.faces) <= target_faces:
+        return mesh
+
+    lo = mesh.vertices.min(axis=0)
+    hi = mesh.vertices.max(axis=0)
+    diag = float(np.linalg.norm(hi - lo))
+    if diag == 0.0:
+        return mesh
+
+    # bisect the cluster-cell size: face count decreases monotonically as
+    # cells grow; aim for the largest count <= target
+    cell_lo, cell_hi = diag / 4096.0, diag / 2.0
+    best = None
+    for _ in range(24):
+        cell = (cell_lo * cell_hi) ** 0.5
+        out = _cluster_collapse(mesh, cell)
+        n = len(out.faces)
+        if n > target_faces:
+            cell_lo = cell
+        else:
+            best = out
+            cell_hi = cell
+        if best is not None and 0.7 * target_faces <= len(best.faces) <= target_faces:
+            break
+    return best if best is not None else _cluster_collapse(mesh, cell_hi)
+
+
+def _cluster_collapse(mesh: Mesh, cell: float) -> Mesh:
+    v = mesh.vertices
+    lo = v.min(axis=0)
+    key = np.floor((v - lo) / cell).astype(np.int64)
+    # dense cluster ids (deterministic; exact 3-column unique, no hashing)
+    _, first_idx, inverse = np.unique(
+        key, axis=0, return_index=True, return_inverse=True
+    )
+    inverse = inverse.reshape(-1)
+    n_clusters = len(first_idx)
+
+    # new vertex = cluster mean (same for colors)
+    counts = np.bincount(inverse, minlength=n_clusters).astype(np.float64)
+    new_v = np.zeros((n_clusters, 3))
+    for a in range(3):
+        new_v[:, a] = np.bincount(inverse, weights=v[:, a], minlength=n_clusters)
+    new_v /= counts[:, None]
+    new_c = None
+    if mesh.colors is not None:
+        new_c = np.zeros((n_clusters, 3))
+        for a in range(3):
+            new_c[:, a] = np.bincount(
+                inverse, weights=mesh.colors[:, a], minlength=n_clusters
+            )
+        new_c /= counts[:, None]
+
+    # remap faces; drop degenerate (collapsed) and duplicate ones
+    f = inverse[mesh.faces]
+    keep = (f[:, 0] != f[:, 1]) & (f[:, 1] != f[:, 2]) & (f[:, 0] != f[:, 2])
+    f = f[keep]
+    # dedupe ignoring rotation (same oriented triangle listed from any vertex)
+    rolled = np.stack([f, f[:, [1, 2, 0]], f[:, [2, 0, 1]]], axis=1)
+    canon = rolled[np.arange(len(f)), rolled[:, :, 0].argmin(axis=1)]
+    _, uniq_idx = np.unique(canon, axis=0, return_index=True)
+    f = f[np.sort(uniq_idx)].astype(np.int32)
+
+    return Mesh(
+        vertices=new_v,
+        normals=compute_vertex_normals(new_v, f),
+        faces=f,
+        colors=new_c,
+    )

@@ -110,10 +110,16 @@ class NativeRasterizer:
         if self._mesh_id < 0:
             raise RuntimeError(f"aae_mesh_register failed ({self._mesh_id})")
 
-    def render(self, W, H, K, R, t, near, far, light_pos, ambient, diffuse, specular):
-        """(bgr uint8 (H, W, 3), depth float32 (H, W)), background zero."""
+    def render(self, W, H, K, R, t, near, far, light_pos, ambient, diffuse, specular,
+               return_px_bbox: bool = False):
+        """(bgr uint8 (H, W, 3), depth float32 (H, W)), background zero; with
+        return_px_bbox, (bgr, depth, px) where px is [min_x, min_y, max_x,
+        max_y] (int32) of the depth > 0 pixels, or None when nothing is
+        visible: the extent the rasterizer tracks as it writes, with no
+        full-frame scan."""
         bgr = np.zeros((H, W, 3), dtype=np.uint8)
         depth = np.zeros((H, W), dtype=np.float32)
+        px = np.empty(4, dtype=np.int32) if return_px_bbox else None
         K = np.ascontiguousarray(K, dtype=np.float64)
         R = np.ascontiguousarray(R, dtype=np.float64)
         t = np.ascontiguousarray(np.asarray(t).reshape(3), dtype=np.float64)
@@ -124,8 +130,10 @@ class NativeRasterizer:
             float(ambient), float(diffuse), float(specular),
             bgr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
             depth.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-            None,
+            None if px is None else px.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
         )
         if rc != 0:
             raise RuntimeError(f"native render failed (rc={rc})")
+        if return_px_bbox:
+            return bgr, depth, (None if px[2] < 0 else px)
         return bgr, depth

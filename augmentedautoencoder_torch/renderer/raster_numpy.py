@@ -1,5 +1,5 @@
 """Reference software rasterizer (numpy) with GL-matched semantics (copy of
-augmentedautoencoder_tpu/renderer/raster_numpy.py without the normals image).
+augmentedautoencoder_tpu/renderer/raster_numpy.py).
 
 Replicates what the reference's GL pipeline computes end to end
 (auto_pose/meshrenderer/meshrenderer_phong.py:101-168 +
@@ -15,7 +15,8 @@ shader/depth_shader_phong.{vs,frag} + gl_utils/camera.py:86-166):
   * perspective-correct attribute interpolation (GL default for varyings)
 
 The C++ backend (native/rasterizer.cpp) mirrors this file; tests assert the
-two agree; the port's CPU tests render with it.
+two agree; the port's CPU tests render with it, and `render_normals`
+draws the normals image with it.
 """
 
 from __future__ import annotations
@@ -80,8 +81,14 @@ def render_mesh(
     ambient: float,
     diffuse: float,
     specular: float,
-) -> Tuple[np.ndarray, np.ndarray]:
-    """Rasterize one mesh; returns (bgr uint8 (H,W,3), depth float32 (H,W))."""
+    return_normals: bool = False,
+) -> Tuple[np.ndarray, ...]:
+    """Rasterize one mesh; returns (bgr uint8 (H,W,3), depth float32 (H,W)).
+
+    With return_normals=True additionally returns the camera-space normal
+    image encoded as (n*0.5+0.5) float32 (H,W,3) — the reference's
+    meshrenderer_phong_normals third attachment
+    (depth_shader_phong.frag:36)."""
     K = np.asarray(K, dtype=np.float64)
     R = np.asarray(R, dtype=np.float64)
     t = np.asarray(t, dtype=np.float64).reshape(3)
@@ -92,6 +99,7 @@ def render_mesh(
 
     depth_buf = np.full((H, W), np.inf, dtype=np.float64)
     color_buf = np.zeros((H, W, 3), dtype=np.float64)
+    normal_buf = np.zeros((H, W, 3), dtype=np.float64) if return_normals else None
 
     valid_z = z > 1e-9
     u = np.where(valid_z, (K[0, 0] * p_cv[:, 0] + K[0, 1] * p_cv[:, 1]) / np.where(valid_z, z, 1.0) + K[0, 2], 0.0)
@@ -154,15 +162,25 @@ def render_mesh(
             )
             return num / iz[..., None]
 
+        n_frag = interp(n_gl)
         rgb = shade(
-            interp(n_gl), interp(l_gl), interp(v_gl), interp(color),
+            n_frag, interp(l_gl), interp(v_gl), interp(color),
             ambient, diffuse, specular,
         )
 
         sub_color = color_buf[y_min : y_max + 1, x_min : x_max + 1]
         sub_depth[win] = z_frag[win]
         sub_color[win] = rgb[win]
+        if return_normals:
+            nn = n_frag / np.maximum(
+                np.linalg.norm(n_frag, axis=-1, keepdims=True), 1e-12
+            )
+            normal_buf[y_min : y_max + 1, x_min : x_max + 1][win] = (
+                nn[win] * 0.5 + 0.5
+            )
 
     bgr = np.round(np.clip(color_buf[..., ::-1], 0.0, 1.0) * 255.0).astype(np.uint8)
     depth = np.where(np.isinf(depth_buf), 0.0, depth_buf).astype(np.float32)
+    if return_normals:
+        return bgr, depth, normal_buf.astype(np.float32)
     return bgr, depth

@@ -86,6 +86,18 @@ class CheckpointManager:
         os.replace(tmp, path)
         return path
 
+    def add_codebook(self, embedding_normalized, embed_obj_bbs, step: Optional[int] = None) -> str:
+        """Re-save the latest (or given) checkpoint with the codebook inside
+        (the ae_embed re-save, reference ae_embed.py:87-91): the embedding
+        as f32 and, if given, the rendered boxes as int32; without boxes the
+        checkpoint keeps the ones it had, as in the JAX package."""
+        payload = self.restore(step)
+        if payload is None:
+            raise FileNotFoundError(f"no checkpoint in {self.checkpoint_dir}")
+        if embed_obj_bbs is None:
+            embed_obj_bbs = payload.get("embed_obj_bbs")
+        return self.save(payload["step"], payload["state_dict"], embedding_normalized, embed_obj_bbs)
+
     def restore(self, at_step: Optional[int] = None) -> Optional[Dict[str, Any]]:
         """The payload dict (with `state_dict`, params and stats merged), or
         None when no checkpoint matches."""

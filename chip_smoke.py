@@ -19,7 +19,9 @@ no jax. Phases, each fatal on failure:
                  calls back to back and an all-zero latent; latent widths
                  100 (B1-B3, operands stored with zero columns up to the
                  kernels' width, against the plain versions on the unpadded
-                 ones) and 256 at B = 64 (B3); the ICP nearest neighbour at
+                 ones) and 256 at B = 64 (B3; B2 at k 32, where its plan
+                 takes smaller tiles or fewer queries per block); the ICP
+                 nearest neighbour at
                  (8, 3000), the main path's shape, (24, 3000), (3, 3000) and
                  7 other shapes, with duplicated destination points and the
                  JAX (1, 8) tie; CUDA's x / n against the f32 reciprocal).
@@ -56,6 +58,19 @@ no jax. Phases, each fatal on failure:
                  least 90% of the detections (listing the others), that
                  a one-detection frame of each recipe equals the port on the
                  CPU, and that every kernel was launched by this path.
+  6. embed    -- the codebook build through cli.ae_embed.main at the width
+                 and view count of the template (92,232 views at 128x128x3,
+                 latent 128, batch 256: 361 batches, a 72-view tail) of a
+                 procedural 5,120-face mesh (radius 40 mm) with seeded
+                 weights. Checks the (92,232, 128) f32 unit-row embedding
+                 and its (92,232, 4) int32 boxes, the checkpoint served by
+                 build_codebook_from_name, the first batch and the tail
+                 encoded again on the CPU from new renders (max |dz| <= 1e-4,
+                 top-1 their own rows), 64 seeded views rendered again and
+                 queried through Codebook.nearest_rotation (B3) returning
+                 their own rows, and that B3 was launched by this path.
+                 Prints views/s, the render / wait / H2D / encode / readback
+                 split and the device busy share over 1,024 views.
 
 The last lines are the kernels' JSON line, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Exits non-zero, without that line, on any
@@ -96,6 +111,9 @@ POSE_R_TOL = 1e-3
 # by ~x sin(angle) in depth. Such detections are listed; more than this
 # share of them fails the phase.
 MAX_WORSE_SHARE = 0.1
+# the codebook's codes, GPU against CPU, after normalization: cuDNN and the
+# CPU sum the 5x5x512 convolutions in other orders
+EMBED_CPU_TOL = 1e-4
 
 
 def log(*args):
@@ -312,9 +330,10 @@ def width_phase(n_rows=92_232, n_obj=2, seed=3):
     """B1-B3 at latent widths the kernels do not copy as they are: the
     operands stored with zero columns up to `_cuda.stream_width` (as the
     server and the Codebook store them), unpadded queries, against the plain
-    versions on the UNPADDED operands (D = 100 in f32 and bf16; B3 also at
-    D = 256, B = 64, where 64 queries of a block do not fit next to two
-    stages and the plan takes fewer). Returns max |dv| per kernel."""
+    versions on the UNPADDED operands (D = 100 in f32 and bf16; B3 and B2
+    (k 32) also at D = 256, B = 64, where 64 queries of a block with their
+    scores and lists do not fit next to two 32-row stages and the plans take
+    smaller tiles or fewer queries per block). Returns max |dv| per kernel."""
     import torch
 
     from augmentedautoencoder_torch.ops import _cuda
@@ -347,12 +366,25 @@ def width_phase(n_rows=92_232, n_obj=2, seed=3):
                                           _cuda.sm_count(0), _cuda.smem_limits(0))
             log(f"  B3 cosine_top1 {tag} (stored width {cbp.shape[1]}): ok, max|dv| {err:.2e} "
                 f"({plan.q_per_block} queries per block, {plan.rows_per_tile}-row tiles, {plan.stages} stages)")
-            if d == 256:
-                continue
             slab = torch.zeros((n_obj, n_pad, d), dtype=dtype, device=dev)
             slab[:, :n_rows] = cb
             slab[0, :n_rows] = cb.flip(0)
             slabp = mc.pad_slab(slab)
+            if d == 256:  # B2's width repair: the shape its plan used to refuse
+                plan = _cuda.plan_topk_stream(b, n_pad, slabp.shape[-1], slabp.element_size(), 32,
+                                              _cuda.sm_count(0), _cuda.smem_limits(0))
+                for obj in range(n_obj):
+                    for stride in (1, 36):
+                        got = mc.grouped_codebook_topk(z, slabp, obj, n_rows, k=32, stride=stride)
+                        plain = mc.grouped_codebook_topk_plain(z, slab, obj, n_rows, k=32, stride=stride)
+                        err = compare_topk(f"B2 {tag} k=32 stride={stride}", got, plain,
+                                           ranking(z, slab[obj], stride, 32))
+                        errs["grouped_codebook_topk"] = max(errs["grouped_codebook_topk"], err)
+                log(f"  B2 grouped_topk {tag} k=32 (stride 1 and 36, planes 0 and 1): ok, max|dv| "
+                    f"{errs['grouped_codebook_topk']:.2e} ({plan.q_per_block} queries per block, "
+                    f"{plan.rows_per_tile}-row tiles, {plan.stages} stages)")
+                del slab, slabp
+                continue
             for obj in range(n_obj):
                 got = mc.grouped_codebook_top1(z, slabp, obj, n_rows)
                 err = compare_topk(f"B1 {tag}", got, mc.grouped_codebook_top1_plain(z, slab, obj, n_rows),
@@ -1141,6 +1173,158 @@ def depth_phase(root, device, template_text, n_frames=8, grid=(4, 6), image_hw=(
     return summary
 
 
+# ------------------------------------------------------------------ phase 6
+def embed_phase(root, device, template_text, radius=40.0, n_retrieve=64, seed=6, batch_size=None,
+                profile_views=1024):
+    """The codebook build through its entry point, cli.ae_embed.main, at the
+    template's width and view count (92,232 views of a procedural
+    5,120-face mesh, seeded weights), then its checks: shape, finite unit
+    rows and int32 boxes; the checkpoint served by build_codebook_from_name;
+    the first batch and the ragged tail encoded again on the CPU from new
+    renders (max |dz| <= EMBED_CPU_TOL after normalization, each CPU code's
+    top-1 in the device codebook its own row, or a row within MARGIN of its
+    cosine: the last in-plane angle of each view repeats its first, 2 pi
+    after it); `n_retrieve` seeded views
+    rendered again and queried through Codebook.nearest_rotation (B3 on a
+    GPU): each returns its own row or one whose cosine is within MARGIN of
+    its own. Returns a summary dict; raises on any failed check."""
+    import numpy as np
+    import torch
+
+    from augmentedautoencoder_torch import factory
+    from augmentedautoencoder_torch import workspace as ws
+    from augmentedautoencoder_torch.cli import ae_embed
+    from augmentedautoencoder_torch.codebook import Codebook
+    from augmentedautoencoder_torch.models import AAE
+    from augmentedautoencoder_torch.ops import icp_nn
+    from augmentedautoencoder_torch.ops import multi_codebook as mc
+    from augmentedautoencoder_torch.ops import nn_query as nq
+    from augmentedautoencoder_torch.renderer.procedural import make_textured_asymmetric, save_ply
+    from augmentedautoencoder_torch.training.checkpoint import CheckpointManager
+    from augmentedautoencoder_torch.utils import batch_iteration_indices
+
+    ws_path = os.path.join(root, "workspace")
+    os.environ["AE_WORKSPACE_PATH"] = ws_path
+    ws.init_workspace(ws_path)
+    ply = os.path.join(root, "embed_obj.ply")
+    save_ply(make_textured_asymmetric(subdivisions=4, radius=radius), ply)
+    with open(ws.get_config_file_path(ws_path, "embed"), "w") as fh:
+        fh.write("\n".join(f"MODEL_PATH: {ply}" if line.startswith("MODEL_PATH") else line
+                           for line in template_text.splitlines()) + "\n")
+    cfg, paths = factory.load_experiment_config("embed")
+    torch.manual_seed(seed)
+    CheckpointManager(paths["checkpoint_dir"]).save(0, AAE.from_config(cfg, precision="float32").state_dict())
+    argv = ["embed"] + ([] if batch_size is None else ["--batch_size", str(batch_size)])
+    bs = batch_size or max(cfg.batch_size, 256)
+
+    # ---- the main path: counts from 0, read right after
+    wrappers = (mc.grouped_codebook_top1, mc.grouped_codebook_topk, nq.cosine_top1_cuda,
+                icp_nn.batched_nn_cuda)
+    for fn in wrappers:
+        fn.launches = 0
+    split = {}
+    t0 = time.perf_counter()
+    path = ae_embed.main(argv, device=device, profile=split)
+    embed_s = time.perf_counter() - t0
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    emb, bbs = payload["embedding_normalized"], payload["embed_obj_bbs"]
+    n, latent = factory.embedding_viewsphere(cfg).shape[0], cfg.latent_space_size
+    if emb.shape != (n, latent) or emb.dtype != torch.float32 or not bool(torch.isfinite(emb).all()):
+        raise AssertionError(f"embedding {tuple(emb.shape)} {emb.dtype}, want ({n}, {latent}) finite f32")
+    norm_err = float((emb.double().norm(dim=1) - 1.0).abs().max())
+    if not norm_err <= 1e-5:
+        raise AssertionError(f"embedding rows are not unit: max |norm - 1| {norm_err}")
+    if bbs.shape != (n, 4) or bbs.dtype != torch.int32:
+        raise AssertionError(f"embed_obj_bbs {tuple(bbs.shape)} {bbs.dtype}, want ({n}, 4) int32")
+    cb = factory.build_codebook_from_name("embed", device=device)
+    if not (torch.equal(cb.embedding_normalized.cpu(), emb) and np.array_equal(cb.embed_obj_bbs, bbs.numpy())):
+        raise AssertionError("build_codebook_from_name does not serve the embedded codebook")
+    log(f"  ae_embed: {n} views x {latent} in {embed_s:.1f} s = {n / embed_s:.1f} views/s "
+        f"(batch {bs}, {split['batches']} batches); rows unit within {norm_err:.1e}; "
+        f"boxes int32; the checkpoint round-trips through build_codebook_from_name")
+
+    # self-retrieval through the served codebook (B3 on a GPU)
+    dataset = factory.build_dataset(paths["dataset_path"], cfg)
+    rows = np.sort(np.random.RandomState(seed).choice(n, n_retrieve, replace=False))
+    crops = np.concatenate([dataset.render_embedding_image_batch(int(r), int(r) + 1)[0] for r in rows])
+    got = np.asarray(cb.nearest_rotation(crops, return_idcs=True))
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    log(f"  main-path launches: {launches}")
+    if str(device).startswith("cuda") and launches["cosine_top1_cuda"] < 1:
+        raise AssertionError(f"B3 was not launched by the embed path: {launches}")
+    z = cb.test_embedding(crops)
+    e = emb.numpy()
+    own, best = np.sum(z * e[rows], axis=1), np.sum(z * e[got], axis=1)
+    miss = (got != rows) & (own < best - MARGIN)
+    if miss.any():
+        raise AssertionError(f"self-retrieval: rows {rows[miss].tolist()} returned {got[miss].tolist()}")
+    log(f"  self-retrieval: {n_retrieve} re-rendered views -> own row {int((got == rows).sum())}, "
+        f"a row within {MARGIN} of its own cosine {int((got != rows).sum())}; "
+        f"min own cosine {own.min():.6f}")
+
+    # ---- what bounds the render: one batch on 1 thread and on render_workers threads
+    per_view = {}
+    for w in sorted({1, dataset.render_workers}):
+        ds_w = factory.build_dataset(paths["dataset_path"], cfg, renderer=dataset.renderer, render_workers=w)
+        ds_w.viewsphere_for_embedding  # computed once per Dataset (~1 s at 92,232 rows): not a render
+        t0 = time.perf_counter()
+        ds_w.render_embedding_image_batch(0, bs)
+        per_view[w] = 1e3 * (time.perf_counter() - t0) / bs
+    log("  one batch rendered and cropped: " + ", ".join(f"{ms:.3f} ms/view on {w} thread(s)"
+                                                      for w, ms in per_view.items()))
+
+    # ---- the same weights on the CPU, from new renders of the first batch and the ragged tail
+    spans = list(batch_iteration_indices(n, bs))
+    torch.set_num_threads(os.cpu_count() or 1)
+    _, _, cpu_model, _ = factory.restore_experiment("embed", device="cpu", precision="float32")
+    encode = factory.make_encode_fn(cpu_model)
+    dz = 0.0
+    for a, b in sorted({spans[0], spans[-1]}):
+        x, box = dataset.render_embedding_image_batch(a, b)
+        if not np.array_equal(box.astype(np.int32), bbs[a:b].numpy()):
+            raise AssertionError(f"views [{a}, {b}): boxes differ from the embedded ones")
+        zc = encode(torch.from_numpy(x)).numpy()
+        zc /= np.linalg.norm(zc, axis=1, keepdims=True)
+        dz = max(dz, float(np.abs(zc - e[a:b]).max()))
+        cos = zc @ e.T
+        top, mine = np.argmax(cos, axis=1), np.arange(a, b)
+        # the in-plane angles run from 0 to 2 pi inclusive, so the last of
+        # each view's NUM_CYCLO rows renders as its first: a tie, not a miss
+        miss = (top != mine) & (cos[np.arange(b - a), mine] < cos.max(axis=1) - MARGIN)
+        if miss.any():
+            raise AssertionError(f"views [{a}, {b}): CPU codes' top-1 {top[miss].tolist()[:8]} "
+                                 f"for rows {mine[miss].tolist()[:8]}")
+    if not dz <= EMBED_CPU_TOL:
+        raise AssertionError(f"GPU vs CPU codes differ by {dz} > {EMBED_CPU_TOL}")
+    log(f"  views {spans[0]} and {spans[-1]} encoded on the CPU: max |dz| {dz:.2e}, top-1 own row "
+        f"(or its exact duplicate): ok")
+
+    summary = {"views": n, "seconds": embed_s, "views_per_s": n / embed_s, "split": split,
+               "launches": launches, "cpu_count": os.cpu_count(), "render_workers": dataset.render_workers,
+               "gpu_cpu_max_dz": dz, "render_ms_per_view": per_view}
+    nb = split["batches"]
+    log(f"  split (s): render thread {split['render']:.1f}, host wait on the render future "
+        f"{split['wait']:.1f}, H2D {split['h2d']:.3f} (device), encode {split['encode']:.2f} (device; "
+        f"{1e3 * split['encode'] / nb:.3f} ms/batch), readback {split['readback']:.3f}, total "
+        f"{split['total']:.1f}; host os.cpu_count() {os.cpu_count()}, render_workers {dataset.render_workers}")
+
+    # ---- device busy share over a few batches of the same build, under torch.profiler
+    if str(device).startswith("cuda"):
+        _, _, model, _ = factory.restore_experiment("embed", device=device, precision="float32")
+        prof = device_profile(lambda: Codebook.build_embedding(
+            factory.make_encode_fn(model), dataset.render_embedding_image_batch, profile_views, bs,
+            progress=False, device=device), n_frames=-(-profile_views // bs))
+        summary["profile"] = prof
+        if prof is None:
+            log("  torch.profiler saw no device time (busy share not measured)")
+        else:
+            top = ", ".join(f"{k} {v:.3f}" for k, v in prof["top_ms_per_frame"])
+            log(f"  {profile_views} views under the profiler: device busy {prof['device_ms']:.1f} of "
+                f"{prof['wall_ms']:.1f} ms ({100 * prof['device_ms'] / prof['wall_ms']:.1f}% busy); "
+                f"top (ms/batch): {top}")
+    return summary
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     start = time.perf_counter()
@@ -1163,6 +1347,8 @@ def main() -> int:
         summary = serving_phase(os.path.join(root, "rgb"), "cuda", template)
         log(f"phase 5: depth-refined serving at full width ({time.perf_counter() - start:.1f} s in)")
         depth = depth_phase(os.path.join(root, "depth"), "cuda", template)
+        log(f"phase 6: codebook embedding at full width ({time.perf_counter() - start:.1f} s in)")
+        embed = embed_phase(os.path.join(root, "embed"), "cuda", template)
     log(f"all phases passed in {time.perf_counter() - start:.1f} s")
 
     kernels = []
@@ -1182,6 +1368,9 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": rec.pop("ms"), "plain_ms": rec.pop("plain_ms"), "bound_ms": bound, "bound_by": bound_by,
             "library_ms": rec.pop("library_ms"),
+            "launches_by_path": {"rgb_serving": summary["launches"].get(name, 0),
+                                 "depth_serving": depth["launches"][name],
+                                 "embed": embed["launches"][name]},
             "timed": {"ms": "device, whole function from the user's inputs, cold L2",
                       "launch_ms": "device, kernel binding on operands in its input form, cold L2",
                       "call_ms": "host clock per call of the whole function, back to back, warm L2, "

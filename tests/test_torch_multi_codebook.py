@@ -192,26 +192,90 @@ def test_stream_plan_on_a_small_plane():
     (128, 4, 64, 32, True), (128, 2, 64, 32, True),
 ])
 def test_stream_plan_refuses_what_does_not_fit(d, elem, b, k, fits):
-    """Where 2 ring stages of 2 blocks do not fit an SM's shared memory the
-    plan raises; it never falls back to fewer blocks per SM."""
+    """Shapes where 2 ring stages of 64 queries' 32-row tiles do not fit
+    beside 2 blocks per SM (`fits` False: D 256, B 64, k 32) are planned
+    with smaller tiles (bf16: 16 rows) or fewer queries per block (f32: 32,
+    two chunks), never with fewer blocks per SM; the plan's split of tiles
+    and query chunks, merged as the kernel merges it, gives the plain
+    version's top-k. Shapes that fit keep their launch shape."""
     from augmentedautoencoder_torch.ops import _cuda
 
+    plan = _cuda.plan_topk_stream(b, 94208, d, elem, k, 132, H100_SMEM)
+    assert plan.stages >= 2 and 2 * (plan.smem_bytes + 1024) <= 233472
     if fits:
-        assert _cuda.plan_topk_stream(b, 94208, d, elem, k, 132, H100_SMEM).stages >= 2
-    else:
-        with pytest.raises(ValueError, match="no 2-stage pipeline"):
-            _cuda.plan_topk_stream(b, 94208, d, elem, k, 132, H100_SMEM)
+        assert plan.q_per_block == min(b, _cuda.STREAM_Q) and plan.rows_per_tile % 32 == 0
+        return
+    assert (plan.rows_per_tile, plan.q_per_block) == ((16, 64) if elem == 2 else (32, 32))
+    dtype = torch.bfloat16 if elem == 2 else torch.float32
+    _split_matches_plain(b, d, k, dtype, n_rows=3000, stride=1)
 
 
 def test_stream_plan_follows_the_device_limits():
     """The budget is read from the device: half an SM less the reserve, at
-    most the opt-in limit of one block."""
+    most the opt-in limit of one block. On a card with half the H100's
+    shared memory the plan takes smaller tiles and fewer queries per block;
+    it raises only where one query of 16-row tiles does not fit."""
     from augmentedautoencoder_torch.ops import _cuda
 
     small = _cuda.SmemLimits(per_sm=102400, per_block=101376, reserved=1024)
     assert _cuda.plan_topk_stream(8, 94208, 128, 2, 8, 132, small).stages == 2
+    plan = _cuda.plan_topk_stream(64, 94208, 128, 2, 32, 132, small)
+    assert plan.stages >= 2 and plan.q_per_block < 64
+    assert 2 * (plan.smem_bytes + 1024) <= 102400
+    tiny = _cuda.SmemLimits(per_sm=16384, per_block=16384, reserved=1024)
     with pytest.raises(ValueError, match="no 2-stage pipeline"):
-        _cuda.plan_topk_stream(64, 94208, 128, 2, 32, 132, small)
+        _cuda.plan_topk_stream(64, 94208, 256, 4, 32, 132, tiny)
+
+
+def blocked_topk(scores, n_rows, k, rows_per_tile, n_blocks, q_per_block):
+    """Plain model of aae_codebook_topk_stream's split and merge: queries in
+    chunks of q_per_block; in each chunk tile t goes to block t % n_blocks,
+    whose list keeps the k best (value desc, index asc) of its rows; the
+    merge takes the k best of all blocks' lists. scores: (B, n_rows) f32
+    numpy, masked rows already -2. Returns (values, indices) (B, k)."""
+    b = scores.shape[0]
+    n_tiles = -(-n_rows // rows_per_tile)
+    vals, idcs = np.empty((b, k), np.float32), np.empty((b, k), np.int64)
+    for q0 in range(0, b, q_per_block):
+        for q in range(q0, min(b, q0 + q_per_block)):
+            parts = []
+            for blk in range(n_blocks):
+                cols = np.concatenate([np.arange(t * rows_per_tile, min((t + 1) * rows_per_tile, n_rows))
+                                       for t in range(blk, n_tiles, n_blocks)] or [np.zeros(0, np.int64)])
+                order = np.lexsort((cols, -scores[q, cols]))[:k]
+                parts.append(cols[order])
+            cand = np.concatenate(parts)
+            best = cand[np.lexsort((cand, -scores[q, cand]))[:k]]
+            vals[q], idcs[q] = scores[q, best], best
+    return vals, idcs
+
+
+def _split_matches_plain(b, d, k, dtype, n_rows, stride):
+    """The top-k plan for (b, d, k, dtype) on an n_rows plane, run through
+    `blocked_topk` on the plain version's masked scores, with each query's
+    best row copied into other blocks at lower and higher indices: equal to
+    grouped_codebook_topk_plain, indices and values."""
+    from augmentedautoencoder_torch.ops import _cuda
+
+    elem = 2 if dtype == torch.bfloat16 else 4
+    plan = _cuda.plan_topk_stream(b, n_rows, d, elem, k, 132, H100_SMEM)
+    assert plan.n_blocks > 1
+    rng = np.random.RandomState(d + b + k)
+    cb = rng.randn(n_rows, d).astype(np.float32)
+    cb /= np.linalg.norm(cb, axis=1, keepdims=True)
+    z = rng.randn(b, d).astype(np.float32)
+    z[: b // 2] = cb[rng.randint(0, n_rows, b // 2)]
+    for j, row in enumerate((72, 720, 1440)):  # ties across blocks, on the stride
+        cb[row + 180] = cb[row]
+        z[j] = cb[row]
+    slab = torch.from_numpy(cb[None]).to(dtype)
+    zt = torch.from_numpy(z)
+    want_v, want_i = tmc.grouped_codebook_topk_plain(zt, slab, 0, n_rows - 3, k=k, stride=stride)
+    scores = tmc._masked_cos(zt, slab, 0, n_rows - 3, stride).numpy()
+    got_v, got_i = blocked_topk(scores, n_rows, k, plan.rows_per_tile, plan.n_blocks, plan.q_per_block)
+    np.testing.assert_array_equal(got_i, want_i.numpy())
+    np.testing.assert_array_equal(got_v, want_v.numpy())
+    return plan
 
 
 @pytest.mark.parametrize("d, dtype, ok", [
@@ -315,12 +379,42 @@ def test_top1_plan_serves_every_width_the_first_design_served(dtype, b):
 
 def test_top1_plan_takes_fewer_queries_where_the_ring_does_not_fit():
     """D 256 in f32 at B 64: two stages do not fit beside 64 queries, so the
-    top-1 plan takes 32 queries per block (two chunks); the top-k plan
-    still refuses this shape (B2's open gap)."""
+    top-1 plan takes 32 queries per block (two chunks); so does the top-k
+    plan at k 32 (B2's width repair), with 32-row tiles."""
     p = _cuda.plan_top1_stream(64, 94208, 256, 4, 132, H100_SMEM)
     assert (p.q_per_block, p.stages, p.rows_per_tile) == (32, 2, 32)
-    with pytest.raises(ValueError, match="no 2-stage pipeline"):
-        _cuda.plan_topk_stream(64, 94208, 256, 4, 32, 132, H100_SMEM)
+    t = _cuda.plan_topk_stream(64, 94208, 256, 4, 32, 132, H100_SMEM)
+    assert (t.q_per_block, t.stages, t.rows_per_tile) == (32, 2, 32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b", [1, 3, 8, 24, 64, 65, 200])
+@pytest.mark.parametrize("k", [1, 8, 32])
+def test_stream_plan_serves_every_width_the_jax_package_serves(dtype, b, k):
+    """grouped_codebook_topk serves every latent width up to 256: the top-k
+    plan never raises there (widths padded to the kernels' step), keeps two
+    blocks per SM, tiles of a multiple of 16 rows (of 32 where it did not
+    have to shrink them) and at most STREAM_Q queries per block."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    for d in range(1, 257):
+        w = _cuda.stream_width(d, dtype)
+        p = _cuda.plan_topk_stream(b, 92232, w, elem, k, 132, H100_SMEM)
+        assert p.stages >= 2 and 2 * (p.smem_bytes + 1024) <= 233472
+        assert p.rows_per_tile % _cuda.STREAM_MIN_ROWS == 0 and 1 <= p.q_per_block <= min(b, _cuda.STREAM_Q)
+        assert p.smem_bytes == _cuda.stream_smem_bytes(p.stages, p.rows_per_tile, w * elem, p.q_per_block, w, k)
+
+
+@pytest.mark.parametrize("case", [(256, 64, 32, "f32", 1), (256, 64, 32, "bf16", 1), (256, 65, 32, "f32", 36),
+                                  (240, 200, 32, "f32", 1), (128, 8, 8, "bf16", 1)],
+                         ids=["d256_b64_f32", "d256_b64_bf16", "d256_b65_stride36", "d240_b200", "serving"])
+def test_stream_split_merge_equals_plain_topk(case):
+    """The kernel's split at its plan (query chunks, tiles dealt to blocks,
+    per-block lists, the merge) equals the plain top-k, ties included, at
+    the repaired wide shapes and at the serving shape."""
+    d, b, k, dt, stride = case
+    plan = _split_matches_plain(b, d, k, torch.bfloat16 if dt == "bf16" else torch.float32, 2000, stride)
+    if d == 256 and dt == "f32":
+        assert -(-b // plan.q_per_block) > -(-b // _cuda.STREAM_Q)  # more chunks than ceil(B / 64)
 
 
 def test_top1_binding_refuses_cpu_tensors():
