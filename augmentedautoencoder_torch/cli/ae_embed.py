@@ -37,7 +37,7 @@ def main(argv: Optional[Sequence[str]] = None, device=None, profile: Optional[Di
     cfg, _ = factory.load_experiment_config(experiment_name, experiment_group)
     if cfg.model == "dsprites":
         raise NotImplementedError(
-            "ae_embed: the dsprites codebook comes with the port's training slice (ROADMAP A.8)"
+            "ae_embed: the dsprites codebook is not ported yet (ROADMAP A.8, item 1: dsprites)"
         )
     cfg, paths, model, _ = factory.restore_experiment(
         experiment_name, experiment_group, args.at_step, device, precision="float32"

@@ -1,0 +1,133 @@
+"""`python -m augmentedautoencoder_torch.cli.ae_train <[group/]experiment>
+[-gen] [-d] [--seed N]` -- train one AAE (port of
+augmentedautoencoder_tpu/cli/ae_train.py).
+
+Resolves the workspace, copies the cfg into the log dir, renders (or loads
+from the cache) the training set on host threads, loads the backgrounds,
+moves both onto the device and trains, resuming from the newest training
+checkpoint, with a checkpoint and a reconstruction grid every
+SAVE_INTERVAL (reference auto_pose/ae/ae_train.py). `-gen` only renders
+the training set; `-d` writes a grid of one augmented batch instead of
+training. SIGINT asks for a gentle stop: finish the step, save, exit.
+
+Runs on the GPU: without CUDA it raises unless `main` is given
+device="cpu". MODEL dsprites is not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import shutil
+import signal
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from .. import factory
+from .. import workspace as ws
+from ..data.pipeline import DeviceDataset
+from ..training import CheckpointManager, Trainer, make_reconstruction_fn
+from ..training.metrics import MetricWriter
+from ..utils import tiles
+from ..utils.png import write_png
+from . import split_experiment_name
+
+
+def save_grid(path: str, batches, rows: int = 4) -> None:
+    """Write a [inputs | reconstructions | targets] grid PNG of (B, H, W, C)
+    batches in [0, 1] (the JAX package's _save_grid)."""
+    n = min(rows * rows, batches[0].shape[0])
+    panels = [tiles(np.asarray(b[:n]), rows, int(np.ceil(n / rows)), scale=1.0) for b in batches]
+    grid = np.concatenate(panels, axis=1)
+    write_png(path, (np.clip(grid, 0, 1) * 255).astype(np.uint8))
+
+
+def load_device_dataset(cfg, paths, device, seed: int, gen_only: bool = False) -> Optional[DeviceDataset]:
+    """Render or load the training set and the backgrounds (one
+    np.random.RandomState(seed) for both, in the JAX package's order), and
+    put them on `device`; None with `gen_only`."""
+    rng = np.random.RandomState(seed)
+    dataset = factory.build_dataset(paths["dataset_path"], cfg)
+    dataset.get_training_images(paths["dataset_path"], rng)
+    if gen_only:
+        return None
+    dataset.load_bg_images(paths["dataset_path"], rng)
+    occlusion_masks = None
+    if cfg.realistic_occlusion:
+        from ..data.occlusion_masks import synthesize_mask_bank, workspace_mask_bank
+
+        occlusion_masks = workspace_mask_bank(ws.get_workspace_path(), (cfg.h, cfg.w))
+        if occlusion_masks is None:
+            print("no random_tless_masks asset found; synthesizing occluders")
+            occlusion_masks = synthesize_mask_bank(1000, (cfg.h, cfg.w))
+    return DeviceDataset(
+        cfg, dataset.train_x, dataset.mask_x, dataset.train_y, dataset.bg_imgs,
+        dataset.noof_obj_pixels, occlusion_masks=occlusion_masks, device=device,
+    )
+
+
+def main(argv: Optional[Sequence[str]] = None, device=None) -> Optional[Trainer]:
+    """Train the experiment on `device` (default: the GPU); returns the
+    Trainer (None for -gen and -d)."""
+    parser = argparse.ArgumentParser(prog="ae_train")
+    parser.add_argument("experiment_name")
+    parser.add_argument("-d", action="store_true", default=False,
+                        help="debug: write an augmented batch grid, no training")
+    parser.add_argument("-gen", action="store_true", default=False, help="generate the training data only")
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args(argv)
+
+    device = torch.device(device) if device is not None else factory.default_device()
+    experiment_name, experiment_group = split_experiment_name(args.experiment_name)
+    cfg, paths = factory.load_experiment_config(experiment_name, experiment_group, prefer_log_dir=False)
+    if cfg.model == "dsprites":
+        raise NotImplementedError("ae_train: the dsprites data is not ported yet (ROADMAP A.8, item 1: dsprites)")
+    for key in ("checkpoint_dir", "train_fig_dir", "dataset_path"):
+        os.makedirs(paths[key], exist_ok=True)
+    # the cfg is copied into the log dir and re-read at inference (ae_train.py:72)
+    if os.path.abspath(paths["cfg_file"]) != os.path.abspath(paths["exp_cfg_file"]):
+        shutil.copy2(paths["cfg_file"], paths["exp_cfg_file"])
+
+    device_ds = load_device_dataset(cfg, paths, device, args.seed, gen_only=args.gen)
+    if device_ds is None:
+        print("training data generated; exiting (-gen)")
+        return None
+    if args.d:
+        x, y = device_ds.sample_batch(torch.Generator(device=device).manual_seed(args.seed), cfg.batch_size)
+        out = os.path.join(paths["train_fig_dir"], "debug_augmented_batch.png")
+        save_grid(out, [x.cpu().numpy(), y.cpu().numpy()])
+        print(f"debug grid written to {out}")
+        return None
+
+    # summaries land in the checkpoint dir, as the reference's TF FileWriter (ae_train.py:117)
+    writer = MetricWriter(paths["checkpoint_dir"])
+    trainer = Trainer(cfg, device_ds, seed=args.seed, metric_writer=writer)
+    ckpt = CheckpointManager(paths["checkpoint_dir"])
+    payload = ckpt.restore_train_state(trainer.model, trainer.optimizer)
+    if payload is not None:
+        trainer.step = int(payload["step"])
+        print(f"resuming from step {trainer.step}")
+    recon_fn = make_reconstruction_fn(trainer.model)
+
+    def save_hook(step: int, tr: Trainer) -> None:
+        ckpt.save_train_state(step, tr.model, tr.optimizer)
+        # training-health figure: input | reconstruction | target
+        x, y = device_ds.sample_batch(torch.Generator(device=device).manual_seed(step), 16)
+        recon, _ = recon_fn(x, y)
+        save_grid(os.path.join(paths["train_fig_dir"], f"training_images_{step}.png"),
+                  [x.cpu().numpy(), recon.cpu().numpy(), y.cpu().numpy()])
+
+    previous = signal.signal(signal.SIGINT, lambda sig, frame: trainer.request_stop())
+    try:
+        trainer.train(save_hook=save_hook)
+    finally:
+        signal.signal(signal.SIGINT, previous)
+        writer.close()
+    print(f"done at step {trainer.step}")
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

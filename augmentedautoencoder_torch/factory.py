@@ -40,11 +40,26 @@ def default_device() -> torch.device:
 
 
 def build_dataset(dataset_path: str, cfg: TrainConfig, renderer=None, render_workers: int = 0):
-    """The experiment's `data.dataset.Dataset` (its view sphere and embedding
-    renders; the renderer is built on first use)."""
+    """The experiment's `data.dataset.Dataset` (its training renders and
+    caches, view sphere and embedding renders; the renderer is built on
+    first use)."""
     from .data.dataset import Dataset  # data.dataset imports pose, which imports this module
 
     return Dataset(dataset_path, cfg, renderer=renderer, render_workers=render_workers)
+
+
+def build_train_model(cfg: TrainConfig, device: Device, seed: int = 0) -> AAE:
+    """The AAE with its decoder, for training, on `device`, its parameters
+    drawn as Flax initializes them (`training.state.init_parameters_`) from
+    a CPU generator seeded with `seed`, so every device starts from the same
+    bits. It is built on the meta device first, so no global RNG is read."""
+    from .training.state import init_parameters_
+
+    with torch.device("meta"):
+        model = AAE.from_config(cfg, train=True)
+    model.to_empty(device="cpu")
+    init_parameters_(model, torch.Generator().manual_seed(seed))
+    return model.to(device)
 
 
 def make_encode_fn(model: AAE):
@@ -67,6 +82,7 @@ def experiment_paths(experiment_name: str, experiment_group: str = ""):
         "workspace": workspace_path,
         "log_dir": log_dir,
         "checkpoint_dir": ws.get_checkpoint_dir(log_dir),
+        "train_fig_dir": ws.get_train_fig_dir(log_dir),
         "dataset_path": ws.get_dataset_path(workspace_path),
         "cfg_file": ws.get_config_file_path(workspace_path, experiment_name, experiment_group),
         "exp_cfg_file": ws.get_train_config_exp_file_path(log_dir, experiment_name),

@@ -5,7 +5,9 @@ the JAX package's conventions kept exactly so its weights carry over:
 
   * SAME padding as Flax computes it: for kernel 5, stride 2 on an even
     input that is 1 before and 2 after, not the symmetric `padding=2`;
-  * BatchNorm AFTER the ReLU (eps 1e-5, running statistics at inference);
+  * BatchNorm AFTER the ReLU (eps 1e-5, running statistics at inference;
+    in training Flax's batch statistics and running-average update, see
+    `FlaxBatchNorm2d`);
   * the feature map is flattened in NHWC order, so the Flax `latent`
     kernel maps over by a plain transpose;
   * the latent head runs in f32 even when the convs run in bf16;
@@ -22,6 +24,47 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+class _FlaxBatchNorm:
+    """Flax `nn.BatchNorm` semantics in training mode, on torch's BatchNorm
+    state (same parameter and buffer names, so checkpoints interchange):
+
+      * batch statistics in f32 as Flax computes them: mean, and the biased
+        variance mean(x^2) - mean^2 clipped at 0;
+      * y = (x - mean) * (rsqrt(var + eps) * weight) + bias;
+      * running statistics keep 0.99 of the old value and fold in the
+        BIASED batch variance (torch's momentum weights the new batch and
+        folds in the unbiased one, which no flag turns off); as Flax
+        keeps no batch count, `num_batches_tracked` stays as it was.
+
+    In eval mode it is torch's BatchNorm on the running statistics."""
+
+    flax_momentum = 0.99
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        xf = x.float()
+        mean = xf.mean(dims)
+        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.flax_momentum
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.float().view(shape)
+        return y.to(x.dtype)
+
+
+class FlaxBatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    """Per-channel BatchNorm over (B, C, H, W) with Flax's training update."""
+
+
+class FlaxBatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
+    """Per-feature BatchNorm over (B, F) with Flax's training update."""
 
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -55,7 +98,7 @@ class Encoder(nn.Module):
         for filters, stride in zip(num_filters, strides):
             self.convs.append(nn.Conv2d(c, filters, kernel_size, stride=stride))
             if batch_norm:
-                self.bns.append(nn.BatchNorm2d(filters, eps=1e-5))
+                self.bns.append(FlaxBatchNorm2d(filters, eps=1e-5))
             ph, pw = same_padding(h, kernel_size, stride), same_padding(w, kernel_size, stride)
             self._pads.append((pw[0], pw[1], ph[0], ph[1]))
             h, w, c = math.ceil(h / stride), math.ceil(w / stride), filters

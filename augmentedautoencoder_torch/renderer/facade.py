@@ -109,16 +109,22 @@ class Renderer:
             light_pos, ambient, diffuse, specular,
         )
 
-    def _sample_light(self, random_light: bool, phong: Dict[str, float]):
+    def sample_light(self, random_light: bool, phong: Dict[str, float] = DEFAULT_PHONG, rng=None):
+        """(light_pos, ambient, diffuse, specular) of one render, as
+        `render(..., light=...)` takes it. A random light draws from `rng`
+        (an np.random.RandomState; the global np.random when None), in the
+        order the JAX package draws it: position, [cad: ambient], diffuse,
+        specular."""
         if random_light:
-            light_pos = 1000.0 * np.random.random(3)
+            rng = np.random if rng is None else rng
+            light_pos = 1000.0 * rng.random_sample(3)
             if self._shading == "cad":
                 # the cad renderer also jitters ambient (meshrenderer.py:99)
-                ambient = phong["ambient"] + 0.1 * (2 * np.random.rand() - 1)
+                ambient = phong["ambient"] + 0.1 * (2 * rng.rand() - 1)
             else:
                 ambient = phong["ambient"]
-            diffuse = phong["diffuse"] + 0.1 * (2 * np.random.rand() - 1)
-            specular = phong["specular"] + 0.1 * (2 * np.random.rand() - 1)
+            diffuse = phong["diffuse"] + 0.1 * (2 * rng.rand() - 1)
+            specular = phong["specular"] + 0.1 * (2 * rng.rand() - 1)
         else:
             light_pos = FIXED_LIGHT
             ambient = phong["ambient"]
@@ -163,8 +169,11 @@ class Renderer:
         far: float,
         random_light: bool = False,
         phong: Dict[str, float] = DEFAULT_PHONG,
+        light: Optional[tuple] = None,
     ) -> Tuple[np.ndarray, np.ndarray]:
-        light = self._sample_light(random_light, phong)
+        """`light` (from `sample_light`) overrides random_light and phong."""
+        if light is None:
+            light = self.sample_light(random_light, phong)
         return self._render_one(obj_id, W, H, K, R, t, near, far, light)
 
     def render_with_bbox(
@@ -179,12 +188,15 @@ class Renderer:
         far: float,
         random_light: bool = False,
         phong: Dict[str, float] = DEFAULT_PHONG,
+        light: Optional[tuple] = None,
     ) -> Tuple[np.ndarray, np.ndarray, Optional[List[float]]]:
         """(bgr, depth, obj_bb) where obj_bb equals calc_2d_bbox(nonzero(depth))
         (None when nothing is visible). On the native backend at one sample
         the visible-pixel extent comes from the rasterizer, with no
-        full-frame scan."""
-        light = self._sample_light(random_light, phong)
+        full-frame scan. `light` (from `sample_light`) overrides
+        random_light and phong."""
+        if light is None:
+            light = self.sample_light(random_light, phong)
         W, H = int(W), int(H)
         if self._native is not None and self._samples <= 1:
             light_pos, ambient, diffuse, specular = light

@@ -1,5 +1,15 @@
-"""Checkpoint I/O of the port (training itself comes in a later slice)."""
+"""Training of the port: checkpoint I/O, the optax-exact optimizer, the
+training step and loop."""
 
 from .checkpoint import CheckpointManager
+from .state import OptaxOptimizer, make_optimizer
+from .trainer import Trainer, make_reconstruction_fn, make_train_step
 
-__all__ = ["CheckpointManager"]
+__all__ = [
+    "CheckpointManager",
+    "OptaxOptimizer",
+    "Trainer",
+    "make_optimizer",
+    "make_reconstruction_fn",
+    "make_train_step",
+]

@@ -1,11 +1,14 @@
 """Generic helpers (copy of the part of augmentedautoencoder_tpu/utils/misc.py
-the codebook embedding uses).
+the codebook embedding and training use).
 
   * batch_iteration_indices -- auto_pose/ae/utils.py:20-26
+  * md5_of -- the dataset caches' key
+  * tiles -- the training-health image grid
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import Iterator, Tuple
 
 import numpy as np
@@ -18,3 +21,32 @@ def batch_iteration_indices(n: int, batch_size: int) -> Iterator[Tuple[int, int]
         start = i * batch_size
         end = min(start + batch_size, n)
         yield (start, end)
+
+
+def md5_of(*parts: object) -> str:
+    """Stable md5 hex digest of the stringified parts (dataset cache keys)."""
+    h = hashlib.md5()
+    for p in parts:
+        h.update(str(p).encode("utf-8"))
+    return h.hexdigest()
+
+
+def tiles(batch: np.ndarray, rows: int, cols: int, spacing_x: int = 0, spacing_y: int = 0,
+          scale: float = 1.0) -> np.ndarray:
+    """Arrange (N, H, W[, C]) images into a rows x cols float grid on a
+    background of ones (nearest-neighbour resize when scale != 1)."""
+    if batch.ndim == 3:
+        batch = batch[..., None]
+    elif batch.ndim != 4:
+        raise ValueError(f"Invalid batch shape: {batch.shape}")
+    n, h, w, c = batch.shape
+    th, tw = int(h * scale), int(w * scale)
+    grid = np.ones((rows * th + (rows - 1) * spacing_y, cols * tw + (cols - 1) * spacing_x, c), dtype=np.float64)
+    for i in range(min(n, rows * cols)):
+        row, col = divmod(i, cols)
+        img = batch[i]
+        if (th, tw) != (h, w):
+            img = img[(np.arange(th) * h // th)][:, (np.arange(tw) * w // tw)]
+        y0, x0 = row * (th + spacing_y), col * (tw + spacing_x)
+        grid[y0:y0 + th, x0:x0 + tw] = img
+    return grid

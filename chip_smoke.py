@@ -71,6 +71,23 @@ no jax. Phases, each fatal on failure:
                  their own rows, and that B3 was launched by this path.
                  Prints views/s, the render / wait / H2D / encode / readback
                  split and the device busy share over 1,024 views.
+  7. train    -- training through cli.ae_train.main at the template's width
+                 (128x128x3, filters [128, 256, 512, 512], latent 128, batch
+                 64, L2 bootstrap 4, Adam 2e-4, the 8-op augmentation) on a
+                 procedural 5,120-face mesh: 4,096 training pairs rendered
+                 on the host threads (-gen; 512 pairs timed on 8 threads
+                 and on 1, in pairs/s), 1,000 seeded
+                 backgrounds (PNG files and the .npy cache), 200 steps with
+                 checkpoints at 100 and 200. Checks the logged losses finite
+                 and falling, chkpt-100 restored bit for bit and one step
+                 from it, one batch-8 step on the card against the CPU port
+                 from the same state and batch, compose_batch card vs CPU
+                 from the same draws (the template's chain, and every
+                 occlusion / clutter option with all 12 augmentation ops
+                 and the combinators), chkpt-200 served by
+                 restore_experiment. Prints ms/step (median of steps
+                 50-200), its split into sample_batch / forward+backward /
+                 optimizer, and the device busy share over 10 steps.
 
 The last lines are the kernels' JSON line, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Exits non-zero, without that line, on any
@@ -79,6 +96,7 @@ failure, without a GPU, or without the rest of the repository.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -114,6 +132,34 @@ MAX_WORSE_SHARE = 0.1
 # the codebook's codes, GPU against CPU, after normalization: cuDNN and the
 # CPU sum the 5x5x512 convolutions in other orders
 EMBED_CPU_TOL = 1e-4
+# phase 7, one train step on the card against the CPU port from the same
+# state and batch (TF32 off on both): the loss within TRAIN_LOSS_RTOL; each
+# parameter's gradient within TRAIN_GRAD_RTOL of that tensor's largest
+# |gradient|; and the update, the CPU optimizer given the card's gradients
+# against the card's parameters after its step, within 1% of one Adam step
+# at the template's learning rate (2e-4). In f32 the two devices' gradients
+# differ by the convolutions' summation orders, and by more where a pixel
+# crosses the bootstrap's k-th value or a pre-activation crosses 0 on one
+# device only: up to 2.5e-3 of a tensor's largest gradient (my chip runs;
+# in f64 the two devices agree within 1e-14, scripts/train_grad_precision.py).
+# Adam scales such a difference by each element's own gradient history, so
+# the update is held to the card's gradients, not the CPU's.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 2e-2
+TRAIN_PARAM_TOL = 2e-6
+# compose_batch card vs CPU, augmented batch on [0, 1] (the affine's
+# matmuls); the trained encoder served against the trainer's, same device
+TRAIN_AUG_TOL = 1e-5
+TRAIN_SERVE_TOL = 1e-5
+# the 12 augmentation ops and the combinators, for the card-vs-CPU check of
+# the options the template leaves off
+ALL_OPS_CODE = """Sequential([
+    Sometimes(0.5, Affine(scale=(1.0, 1.2))), CoarseDropout(p=0.2, size_percent=0.05, per_channel=0.5),
+    Dropout(p=0.1, per_channel=0.5), GaussianBlur((0.0, 1.5)), Add((-25, 25), per_channel=0.3),
+    AdditiveGaussianNoise(scale=(0.0, 12.0), per_channel=0.5), Multiply((0.6, 1.4), per_channel=0.5),
+    Invert(0.2, per_channel=True), ContrastNormalization((0.5, 2.2), per_channel=0.3),
+    OneOf([Fliplr(0.5), Flipud(0.5), Grayscale((0.0, 1.0)), Noop()]),
+    Sequential([Add((-10, 10)), Multiply((0.9, 1.1))], random_order=True)])"""
 
 
 def log(*args):
@@ -663,15 +709,22 @@ def nn_phase(reps=20):
 
 
 # ------------------------------------------------------------------ phase 4
-def device_profile(fn, n_frames=8, top=6):
+def device_profile(fn, n_frames=8, top=6, trace_dir=None):
     """Wall ms and summed device ms of fn() under torch.profiler, with the
     largest device-time names (ms per frame); None when the profiler
-    records no device time."""
+    records no device time. With `trace_dir` the profile is the port's
+    `training.profiler.trace`, which also writes its Chrome trace there."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    if trace_dir is None:
+        region = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    else:
+        from augmentedautoencoder_torch.training.profiler import trace
+
+        region = trace(trace_dir)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with region as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1325,6 +1378,310 @@ def embed_phase(root, device, template_text, radius=40.0, n_retrieve=64, seed=6,
     return summary
 
 
+
+def _to(tree, device):
+    """A nested dict / list of tensors moved to `device` (other leaves kept)."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def train_step_flops(cfg) -> float:
+    """FLOPs of one training step's convolutions and matmuls (forward and
+    backward) at cfg's shapes and batch, counted by
+    torch.utils.flop_counter on meta tensors (no device work)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from augmentedautoencoder_torch.models import AAE
+
+    with torch.device("meta"):
+        model = AAE.from_config(cfg, train=True).train()
+        x = torch.empty((cfg.batch_size,) + tuple(cfg.shape))
+        with FlopCounterMode(display=False) as counter:
+            model(x, x, train=True).total_loss.backward()
+    return float(counter.get_total_flops())
+
+
+def train_phase(root, device, template_text, n_train=4096, n_bg=1000, num_iter=200, save_interval=100,
+                seed=7, radius=40.0, parity_batch=8, split_steps=10, profile_steps=10, timed_from=50):
+    """Training through its entry point, cli.ae_train.main, at the template's
+    width (a procedural 5,120-face mesh; NOOF_TRAINING_IMGS cut to
+    `n_train`, NOOF_BG_IMGS to `n_bg` seeded backgrounds written as PNG
+    files and as the .npy cache load_bg_images reads), then its checks: the
+    logged losses finite and falling (mean of the last 5 below the first
+    5); chkpt-<save_interval> and chkpt-<num_iter> written, the first
+    restored bit for bit (step, parameters, statistics, optimizer state)
+    and one more step taken from it; one step of batch `parity_batch` on
+    `device` and on the CPU from the same state and batch (loss within
+    TRAIN_LOSS_RTOL, gradients within TRAIN_GRAD_RTOL, the update from the
+    card's gradients within TRAIN_PARAM_TOL); compose_batch
+    on `device` and on the CPU from the same draws (composites equal,
+    augmented batch within TRAIN_AUG_TOL); the trained checkpoint served by
+    restore_experiment, encoding as the trainer's model. Returns a summary
+    dict; raises on any failed check."""
+    import numpy as np
+    import torch
+
+    from augmentedautoencoder_torch import factory
+    from augmentedautoencoder_torch import workspace as ws
+    from augmentedautoencoder_torch.cli import ae_train
+    from augmentedautoencoder_torch.data import augment_spec
+    from augmentedautoencoder_torch.data.occlusion_masks import synthesize_mask_bank
+    from augmentedautoencoder_torch.data.pipeline import DeviceDataset
+    from augmentedautoencoder_torch.ops import icp_nn
+    from augmentedautoencoder_torch.ops import multi_codebook as mc
+    from augmentedautoencoder_torch.ops import nn_query as nq
+    from augmentedautoencoder_torch.renderer.procedural import make_textured_asymmetric, save_ply
+    from augmentedautoencoder_torch.training import CheckpointManager, Trainer, make_optimizer
+    from augmentedautoencoder_torch.training.profiler import StageTimer
+    from augmentedautoencoder_torch.utils.png import write_png
+
+    cuda = str(device).startswith("cuda")
+    ws_path = os.path.join(root, "workspace")
+    os.environ["AE_WORKSPACE_PATH"] = ws_path
+    ws.init_workspace(ws_path)
+    ply = os.path.join(root, "train_obj.ply")
+    save_ply(make_textured_asymmetric(subdivisions=4, radius=radius), ply)
+    bg_dir = os.path.join(root, "backgrounds")
+    os.makedirs(bg_dir)
+    subs = {"MODEL_PATH": ply, "BACKGROUND_IMAGES_GLOB": os.path.join(bg_dir, "*.png"),
+            "NOOF_TRAINING_IMGS": n_train, "NOOF_BG_IMGS": n_bg, "NUM_ITER": num_iter,
+            "SAVE_INTERVAL": save_interval}
+    lines = []
+    for line in template_text.splitlines():
+        key = line.split(":")[0].strip()
+        lines.append(f"{key}: {subs[key]}" if key in subs else line)
+    with open(ws.get_config_file_path(ws_path, "train"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    cfg, paths = factory.load_experiment_config("train")
+    rng = np.random.RandomState(seed)
+    bgs = rng.randint(0, 256, (n_bg,) + cfg.shape, dtype=np.uint8)
+    for i, img in enumerate(bgs):
+        write_png(os.path.join(bg_dir, f"{i:05d}.png"), img)
+    cache = factory.build_dataset(paths["dataset_path"], cfg).bg_cache_file(paths["dataset_path"])
+    os.makedirs(paths["dataset_path"], exist_ok=True)
+    np.save(cache, bgs)
+    import importlib.util
+
+    log(f"  PIL on this machine: {'yes' if importlib.util.find_spec('PIL') else 'no'} (without it the "
+        f"backgrounds come from the .npy cache only); tensorboard: "
+        f"{'yes' if importlib.util.find_spec('tensorboard') else 'no'} (with it the timed run also writes "
+        f"event files)")
+    log(f"  cfg: {cfg.h}x{cfg.w}x{cfg.c}, filters {cfg.num_filter}, latent {cfg.latent_space_size}, batch "
+        f"{cfg.batch_size}, {cfg.loss} bootstrap {cfg.bootstrap_ratio}, {cfg.optimizer} {cfg.learning_rate}; "
+        f"cut: NOOF_TRAINING_IMGS 20000 -> {n_train}, NOOF_BG_IMGS 15000 -> {n_bg} seeded backgrounds "
+        f"(PNG files and the .npy cache), NUM_ITER -> {num_iter}, SAVE_INTERVAL -> {save_interval}")
+
+    # the training renders, through the entry point (-gen: renders and the .npz cache)
+    t0 = time.perf_counter()
+    ae_train.main(["train", "-gen", "--seed", str(seed)], device=device)
+    gen_s = time.perf_counter() - t0
+    # the renders alone, on the render threads and on one
+    probe = factory.build_dataset(paths["dataset_path"], cfg)
+    workers, per_pair = probe.render_workers, {}
+    for w in sorted({workers, 1}):
+        ds_w = factory.build_dataset(paths["dataset_path"], cfg, renderer=probe.renderer, render_workers=w)
+        ds_w.noof_training_imgs = n_probe = min(n_train, 512)
+        t0 = time.perf_counter()
+        ds_w.render_training_images(np.random.RandomState(seed), progress=False)
+        per_pair[w] = (time.perf_counter() - t0) / n_probe
+    log(f"  training renders: -gen {n_train} pairs and the cache in {gen_s:.1f} s ({n_train / gen_s:.1f} pairs/s); "
+        f"{n_probe} pairs rendered and cropped: " + ", ".join(f"{1 / t:.1f} pairs/s on {w} thread(s)"
+                                                         for w, t in per_pair.items())
+        + f" (host os.cpu_count() {os.cpu_count()})")
+    render_pairs_per_s = 1 / per_pair[workers]
+
+    # ---- the main path: counts from 0, read right after
+    wrappers = (mc.grouped_codebook_top1, mc.grouped_codebook_topk, nq.cosine_top1_cuda, icp_nn.batched_nn_cuda)
+    for fn in wrappers:
+        fn.launches = 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = ae_train.main(["train", "--seed", str(seed)], device=device)
+    train_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    log(f"  main-path launches: {launches}")
+    ends = np.asarray(trainer.step_end_times)
+    step_ms = float(np.median(np.diff(ends[timed_from - 1:]))) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+    log(f"  ae_train: {trainer.step} steps in {train_s:.1f} s (load, {trainer.step} steps, 2 saves); "
+        f"{step_ms:.3f} ms/step (median of steps {timed_from}-{num_iter}, host clock, losses read back at "
+        f"the deferred flushes only); device dataset {trainer.dataset.nbytes() / 2**20:.1f} MiB, peak "
+        f"allocated {peak:.2f} GiB")
+
+    flops = train_step_flops(trainer.dataset.cfg)
+    log(f"  one step's convolutions and matmuls (torch.utils.flop_counter on meta tensors): {flops / 1e12:.3f} "
+        f"TFLOP; at {step_ms:.3f} ms/step {flops / step_ms / 1e9:.1f} TFLOP/s = "
+        f"{100 * flops / step_ms / 1e-3 / F32_FLOPS:.1f}% of the f32 peak ({F32_FLOPS / 1e12:.0f} TFLOP/s, 700 W)")
+
+    with open(os.path.join(paths["checkpoint_dir"], "metrics.jsonl")) as fh:
+        rows = [json.loads(line) for line in fh]
+    total = np.array([r["total_loss"] for r in rows])
+    if not (len(total) >= 10 and np.isfinite(total).all()):
+        raise AssertionError(f"logged losses: {total.tolist()}")
+    first, last = float(total[:5].mean()), float(total[-5:].mean())
+    if not last < first:
+        raise AssertionError(f"the loss did not fall: first 5 logged {total[:5].tolist()}, last 5 {total[-5:].tolist()}")
+    log(f"  losses: {len(total)} logged, all finite; mean of the first 5 {first:.6f}, of the last 5 {last:.6f}")
+
+    # ---- checkpoints: chkpt-<save_interval> restored bit for bit, one more step from it
+    mgr = CheckpointManager(paths["checkpoint_dir"])
+    if not {save_interval, num_iter} <= set(mgr.all_steps()):
+        raise AssertionError(f"checkpoints {mgr.all_steps()}, want {save_interval} and {num_iter}")
+    saved = torch.load(mgr.path_for_step(save_interval), map_location="cpu", weights_only=True)
+    resumed = Trainer(cfg, trainer.dataset, seed=seed)
+    payload = mgr.restore_train_state(resumed.model, resumed.optimizer, at_step=save_interval)
+    resumed.step = int(payload["step"])
+    state = resumed.model.state_dict()
+    want = {**saved["params"], **saved["batch_stats"], **saved["decoder"]}
+    opt = resumed.optimizer.state_dict()
+    same = (resumed.step == saved["step"] == save_interval and set(state) == set(want)
+            and all(torch.equal(state[k].cpu(), v) for k, v in want.items())
+            and torch.equal(opt["count"], saved["opt_state"]["count"])
+            and all(torch.equal(opt["slots"][s][k], v) for s, d in saved["opt_state"]["slots"].items()
+                    for k, v in d.items()))
+    if not same:
+        raise AssertionError(f"chkpt-{save_interval} did not restore bit for bit")
+    resumed.train(num_iter=save_interval + 1, progress=False)
+    if resumed.step != save_interval + 1 or int(resumed.optimizer.count) != save_interval + 1:
+        raise AssertionError(f"the step after the restore: step {resumed.step}")
+    log(f"  chkpt-{save_interval} and chkpt-{num_iter} written; chkpt-{save_interval} restored bit for bit "
+        f"(step, {len(want)} tensors, {sum(len(d) for d in opt['slots'].values())} optimizer slots, count "
+        f"{int(opt['count'])}); one more step from it: ok")
+
+    # ---- one step of batch `parity_batch` on the device and on the CPU from the same state and batch
+    state = {k: v.detach().cpu().clone() for k, v in resumed.model.state_dict().items()}
+    opt = _to(resumed.optimizer.state_dict(), "cpu")
+    opt = {"name": opt["name"], "count": opt["count"].clone(),
+           "slots": {s: {k: v.clone() for k, v in d.items()} for s, d in opt["slots"].items()}}
+    x, y = trainer.dataset.sample_batch(resumed.generator_for(10 ** 6), parity_batch)
+    x, y = x.cpu(), y.cpu()
+
+    def restored(dev):
+        model = factory.build_train_model(cfg, dev)
+        model.load_state_dict(state)
+        optim = make_optimizer(model, cfg)
+        optim.load_state_dict(opt)
+        return model, optim
+
+    steps = {}
+    for dev in (device, "cpu"):
+        model, optim = restored(dev)
+        model.train()
+        out = model(x.to(dev), y.to(dev), train=True)
+        optim.zero_grad()
+        out.total_loss.backward()
+        grads = {k: v.grad.detach().cpu().clone() for k, v in model.named_parameters()}
+        optim.step()
+        steps[dev] = (out.total_loss.item(), grads, {k: v.detach().cpu() for k, v in model.named_parameters()})
+    (loss_d, g_d, p_d), (loss_c, g_c, p_c) = steps[device], steps["cpu"]
+    # the update alone: the CPU optimizer given the card's gradients
+    model, optim = restored("cpu")
+    for k, v in model.named_parameters():
+        v.grad = g_d[k].clone()
+    optim.step()
+    p_upd = {k: v.detach() for k, v in model.named_parameters()}
+    loss_rel = abs(loss_d - loss_c) / abs(loss_c)
+    dg = {k: float((g_d[k] - g_c[k]).abs().max() / g_c[k].abs().max().clamp_min(1e-30)) for k in g_c}
+    dp = {k: float((p_d[k] - p_upd[k]).abs().max()) for k in p_c}
+    own = max(float((p_d[k] - p_c[k]).abs().max()) for k in p_c)
+    moved = max(float((p_upd[k] - state[k]).abs().max()) for k in p_c)
+    worst_g = sorted(dg.items(), key=lambda kv: -kv[1])
+    worst = sorted(dp.items(), key=lambda kv: -kv[1])
+    log(f"  one step of batch {parity_batch}, {device} vs CPU from chkpt-{save_interval}'s state (TF32 off): loss "
+        f"{loss_d:.7f} vs {loss_c:.7f} (rel {loss_rel:.2e}); max |dgrad| / max |grad| per tensor: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst_g) + "; the update, the CPU optimizer given the card's "
+        "gradients, max |dparam| per tensor: " + ", ".join(f"{k} {v:.2e}" for k, v in worst)
+        + f"; the step moved parameters by up to {moved:.2e}; each device's own step: max |dparam| {own:.2e}")
+    if not loss_rel <= TRAIN_LOSS_RTOL or not worst_g[0][1] <= TRAIN_GRAD_RTOL or not worst[0][1] <= TRAIN_PARAM_TOL:
+        raise AssertionError(f"{device} vs CPU train step: loss rel {loss_rel}, max |dgrad| / max |grad| "
+                             f"{worst_g[0]}, max |dparam| {worst[0]}")
+
+    # ---- compose_batch from the same draws on the device and on the CPU: the
+    # template's chain, then every occlusion / clutter option and augmentation op
+    ds = trainer.dataset
+    arrays = [a.cpu().numpy() for a in (ds.train_x, ds.mask_x, ds.train_y, ds.bg_imgs, ds.noof_obj_pixels)]
+    # ds.cfg, not cfg: every parse of the template draws its GaussianBlur
+    # sigma anew (`1.2*np.random.rand()`, as in the reference)
+    options_cfg = dataclasses.replace(
+        ds.cfg, realistic_occlusion=0.3, square_occlusion=0.3, neighbor_clutter=0.5, neighbor_clutter_count=2,
+        code=eval(ALL_OPS_CODE, dict(augment_spec.DSL_CONSTRUCTORS)))
+    occluders = synthesize_mask_bank(64, (cfg.h, cfg.w), seed=seed)
+    aug_errs = {}
+    for name, c, occ in (("template", ds.cfg, None), ("every option and op", options_cfg, occluders)):
+        dev_ds = ds if occ is None else DeviceDataset(c, *arrays, occlusion_masks=occ, device=device)
+        cpu_ds = DeviceDataset(c, *arrays, occlusion_masks=occ, device="cpu")
+        draws = dev_ds.draw_batch(resumed.generator_for(10 ** 6 + 1), cfg.batch_size)
+        cpu_draws = _to(draws, "cpu")
+        comp_equal = all(torch.equal(a.cpu(), b) for a, b in zip(dev_ds.composite(draws), cpu_ds.composite(cpu_draws)))
+        aug_errs[name] = float((dev_ds.compose_batch(draws)[0].cpu() - cpu_ds.compose_batch(cpu_draws)[0]).abs().max())
+        log(f"  compose_batch ({name}), {device} vs CPU from the same draws (batch {cfg.batch_size}): uint8 "
+            f"composites {'equal' if comp_equal else 'DIFFER'}; augmented max |dx| {aug_errs[name]:.2e}")
+        if not comp_equal or not aug_errs[name] <= TRAIN_AUG_TOL:
+            raise AssertionError(f"compose_batch ({name}) {device} vs CPU: composites equal {comp_equal}, "
+                                 f"aug err {aug_errs[name]}")
+        del dev_ds, cpu_ds
+    aug_err = max(aug_errs.values())
+
+    # ---- the trained checkpoint, served
+    _, _, served, payload = factory.restore_experiment("train", device=device)
+    trainer.model.eval()
+    with torch.no_grad():
+        xb = ds.sample_batch(resumed.generator_for(10 ** 6 + 2), cfg.batch_size)[0]
+        dz = float((served.encode(xb) - trainer.model.encode(xb)).abs().max())
+    if payload["step"] != num_iter or not dz <= TRAIN_SERVE_TOL:
+        raise AssertionError(f"chkpt-{num_iter} served: step {payload['step']}, max |dz| {dz}")
+    log(f"  chkpt-{num_iter} served by restore_experiment: max |dz| {dz:.2e} against the trainer's encoder")
+
+    summary = {"launches": launches, "step_ms": step_ms, "step_flops": flops, "render_pairs_per_s": render_pairs_per_s,
+               "gen_s": gen_s, "render_workers": workers, "loss_first5": first, "loss_last5": last, "gpu_cpu_loss_rel": loss_rel,
+               "gpu_cpu_max_dgrad_rel": worst_g[0][1], "gpu_cpu_max_dparam": worst[0][1], "own_step_max_dparam": own,
+               "aug_err": aug_err, "serve_dz": dz}
+    if not cuda:
+        return summary
+
+    # ---- the step split into its stages (the port's StageTimer), each closed by a synchronize
+    timer = StageTimer()
+    tr = resumed
+    tr.model.train()
+    for i in range(split_steps):
+        gen = tr.generator_for(10 ** 7 + i)
+        torch.cuda.synchronize()
+        with timer.stage("sample_batch"):
+            xb, yb = tr.dataset.sample_batch(gen, cfg.batch_size)
+            torch.cuda.synchronize()
+        with timer.stage("forward_backward"):
+            out = tr.model(xb, yb, train=True, generator=gen)
+            tr.optimizer.zero_grad()
+            out.total_loss.backward()
+            torch.cuda.synchronize()
+        with timer.stage("optimizer"):
+            tr.optimizer.step()
+            torch.cuda.synchronize()
+    split = {k: 1e3 * v["mean_s"] for k, v in timer.summary().items()}
+    summary["split_ms"] = split
+    log(f"  step split over {split_steps} steps (ms, mean, synchronized): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + f"; sum {sum(split.values()):.3f}")
+    # the busy share under the port's training.profiler.trace
+    prof = device_profile(lambda: [tr.step_fn(tr.generator_for(10 ** 8 + i)) for i in range(profile_steps)],
+                          n_frames=profile_steps, top=8, trace_dir=os.path.join(root, "trace"))
+    summary["profile"] = prof
+    if prof is None:
+        log("  torch.profiler saw no device time (busy share not measured)")
+    else:
+        top = ", ".join(f"{k} {v:.3f}" for k, v in prof["top_ms_per_frame"])
+        log(f"  {profile_steps} steps under the profiler: device busy {prof['device_ms']:.1f} of "
+            f"{prof['wall_ms']:.1f} ms ({100 * prof['device_ms'] / prof['wall_ms']:.1f}% busy); "
+            f"top (ms/step): {top}")
+    return summary
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     start = time.perf_counter()
@@ -1349,6 +1706,8 @@ def main() -> int:
         depth = depth_phase(os.path.join(root, "depth"), "cuda", template)
         log(f"phase 6: codebook embedding at full width ({time.perf_counter() - start:.1f} s in)")
         embed = embed_phase(os.path.join(root, "embed"), "cuda", template)
+        log(f"phase 7: training at full width ({time.perf_counter() - start:.1f} s in)")
+        train = train_phase(os.path.join(root, "train"), "cuda", template)
     log(f"all phases passed in {time.perf_counter() - start:.1f} s")
 
     kernels = []
@@ -1370,7 +1729,8 @@ def main() -> int:
             "library_ms": rec.pop("library_ms"),
             "launches_by_path": {"rgb_serving": summary["launches"].get(name, 0),
                                  "depth_serving": depth["launches"][name],
-                                 "embed": embed["launches"][name]},
+                                 "embed": embed["launches"][name],
+                                 "train": train["launches"][name]},
             "timed": {"ms": "device, whole function from the user's inputs, cold L2",
                       "launch_ms": "device, kernel binding on operands in its input form, cold L2",
                       "call_ms": "host clock per call of the whole function, back to back, warm L2, "

@@ -10,6 +10,7 @@ import os
 import textwrap
 
 import numpy as np
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -21,6 +22,19 @@ def load_converter():
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+@pytest.fixture(autouse=True)
+def global_rng_guard():
+    """Restores the global np.random and torch RNG states after each test
+    of a module that imports this fixture (building a torch module draws
+    its default initialization from the global torch RNG)."""
+    import torch
+
+    np_state, torch_state = np.random.get_state(), torch.random.get_rng_state()
+    yield
+    np.random.set_state(np_state)
+    torch.random.set_rng_state(torch_state)
+
 
 TINY_CFG = textwrap.dedent(
     """
@@ -184,3 +198,215 @@ def make_frames(classes, n_frames, dets_per_class, seed, hw=(96, 128)):
         frames.append({"bboxes": boxes, "color_img": img,
                        "camK": np.array([[100.0, 0, 64], [0, 100.0, 48], [0, 0, 1]])})
     return frames
+
+
+def jax_aae_variables(model, hw, seed):
+    """Flax variables of a JAX `AAE` (decoder included) from `model.init`
+    with a fixed key, as nested dicts of numpy arrays, with non-trivial
+    BatchNorm scales, biases and running statistics and a non-zero VAE
+    sigma kernel, drawn from np.random.RandomState(seed)."""
+    import jax
+    import jax.numpy as jnp
+
+    x = jnp.zeros((1,) + tuple(hw))
+    variables = jax.tree.map(np.array, dict(model.init({"params": jax.random.PRNGKey(seed)}, x, x)))
+    rng = np.random.RandomState(seed)
+    for scope, stats in variables.get("batch_stats", {}).items():
+        for name, s in stats.items():
+            s["mean"] = (rng.randn(*s["mean"].shape) * 0.1).astype(np.float32)
+            s["var"] = rng.uniform(0.5, 2.0, s["var"].shape).astype(np.float32)
+            p = variables["params"][scope][name]
+            p["scale"] = rng.uniform(0.5, 1.5, p["scale"].shape).astype(np.float32)
+            p["bias"] = (rng.randn(*p["bias"].shape) * 0.1).astype(np.float32)
+    enc = variables["params"]["encoder"]
+    if "latent_sigma" in enc:
+        enc["latent_sigma"]["kernel"] = (rng.randn(*enc["latent_sigma"]["kernel"].shape) * 0.05).astype(np.float32)
+    return variables
+
+
+def port_aae(variables, decoder=True, **kw):
+    """The port's AAE with `kw` dims, loaded from Flax `variables`."""
+    from augmentedautoencoder_torch.convert import params_from_jax
+    from augmentedautoencoder_torch.models import AAE
+
+    model = AAE(decoder=decoder, **kw)
+    model.load_state_dict(params_from_jax(variables["params"], variables.get("batch_stats"), decoder=decoder))
+    return model
+
+
+def jax_draw(spec, rng, shape):
+    """The parameters the JAX augmentation op or combinator `spec` draws
+    from `rng` for a batch of `shape` (augmentedautoencoder_tpu/data/augment.py's
+    key splits), in the layout of the port's `Augmenter.draw`."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from augmentedautoencoder_tpu.data import augment as ja
+    from augmentedautoencoder_tpu.data import augment_spec as JS
+
+    def _t(a):
+        return torch.from_numpy(np.array(a))
+
+    b, h, w, c = shape
+    bern, unif = jax.random.bernoulli, jax.random.uniform
+    if isinstance(spec, JS.Noop):
+        return {}
+    if isinstance(spec, JS.Sequential):
+        if spec.random_order:
+            n = len(spec.children)
+            kperm, *kops = jax.random.split(rng, n + 1)
+            perm = [int(i) for i in jax.random.permutation(kperm, n)]
+            return {"perm": perm, "steps": [jax_draw(spec.children[i], kops[j], shape) for j, i in enumerate(perm)]}
+        out = []
+        for child in spec.children:
+            rng, sub = jax.random.split(rng)
+            out.append(jax_draw(child, sub, shape))
+        return out
+    if isinstance(spec, JS.Sometimes):
+        k1, k2 = jax.random.split(rng)
+        return {"apply": _t(bern(k1, float(spec.p), (b, 1, 1, 1))), "child": jax_draw(spec.child, k2, shape)}
+    if isinstance(spec, JS.OneOf):
+        n = len(spec.children)
+        keys = jax.random.split(rng, n + 1)
+        return {"choice": _t(jax.random.randint(keys[0], (b, 1, 1, 1), 0, n)).long(),
+                "children": [jax_draw(ch, keys[i + 1], shape) for i, ch in enumerate(spec.children)]}
+    if isinstance(spec, JS.Affine):
+        lo, hi = JS.as_range(spec.scale)
+        return {"scales": _t(unif(rng, (b,), minval=lo, maxval=hi))}
+    if isinstance(spec, (JS.CoarseDropout, JS.Dropout)):
+        cells = (b, max(1, int(round(h * spec.size_percent))), max(1, int(round(w * spec.size_percent)))) \
+            if isinstance(spec, JS.CoarseDropout) else (b, h, w)
+        k1, k2, k3 = jax.random.split(rng, 3)
+        keep = bern(k1, 1.0 - spec.p, cells + (1,))
+        if isinstance(spec, JS.Dropout) and spec.per_channel >= 1.0:
+            keep = bern(k2, 1.0 - spec.p, cells + (c,))
+        elif spec.per_channel > 0.0:
+            keep = jnp.where(bern(k3, spec.per_channel, (b, 1, 1, 1)), bern(k2, 1.0 - spec.p, cells + (c,)), keep)
+        return {"keep": _t(keep)}
+    if isinstance(spec, JS.GaussianBlur):
+        lo, hi = JS.as_range(spec.sigma)
+        return {} if hi < 1e-3 or lo == hi else {"sigmas": _t(unif(rng, (b,), minval=lo, maxval=hi))}
+    if isinstance(spec, JS.Add):
+        lo, hi = JS.as_range(spec.value)
+        discrete = float(lo).is_integer() and float(hi).is_integer()
+        return {"value": _t(ja._per_image_param(rng, b, c, lo, hi, spec.per_channel, discrete=discrete))}
+    if isinstance(spec, JS.AdditiveGaussianNoise):
+        lo, hi = JS.as_range(spec.scale)
+        k1, k2, k3, k4 = jax.random.split(rng, 4)
+        scale = unif(k1, (b, 1, 1, 1), minval=lo, maxval=hi)
+        noise = jax.random.normal(k2, (b, h, w, c if spec.per_channel >= 1.0 else 1)) * scale + spec.loc
+        if 0.0 < spec.per_channel < 1.0:
+            noise_pc = jax.random.normal(k3, (b, h, w, c)) * scale + spec.loc
+            noise = jnp.where(bern(k4, spec.per_channel, (b, 1, 1, 1)), noise_pc, jnp.broadcast_to(noise, (b, h, w, c)))
+        return {"noise": _t(noise)}
+    if isinstance(spec, JS.Multiply):
+        lo, hi = JS.as_range(spec.mul)
+        return {"mul": _t(ja._per_image_param(rng, b, c, lo, hi, spec.per_channel))}
+    if isinstance(spec, JS.ContrastNormalization):
+        lo, hi = JS.as_range(spec.alpha)
+        return {"alpha": _t(ja._per_image_param(rng, b, c, lo, hi, spec.per_channel))}
+    if isinstance(spec, JS.Invert):
+        k1, k2, k3 = jax.random.split(rng, 3)
+        inv = bern(k1, spec.p, (b, 1, 1, 1))
+        if spec.per_channel > 0.0:
+            inv = jnp.where(bern(k3, spec.per_channel, (b, 1, 1, 1)), bern(k2, spec.p, (b, 1, 1, c)), inv)
+        return {"invert": _t(inv)}
+    if isinstance(spec, (JS.Fliplr, JS.Flipud)):
+        return {"flip": _t(bern(rng, spec.p, (b, 1, 1, 1)))}
+    if isinstance(spec, JS.Grayscale):
+        lo, hi = JS.as_range(spec.alpha)
+        return {"alpha": _t(unif(rng, (b, 1, 1, 1), minval=lo, maxval=hi))}
+    raise NotImplementedError(type(spec).__name__)
+
+
+def _draw_leaves(p, path=""):
+    """Flatten nested draws into {path: numpy array}; a random order
+    {"perm", "steps"} becomes its one-hot (1, n, n) position-by-child
+    matrix and the steps in child order, so that draws in other orders
+    line up."""
+    import torch
+
+    if isinstance(p, dict) and "perm" in p:
+        n = len(p["perm"])
+        onehot = np.zeros((1, n, n), bool)
+        onehot[0, np.arange(n), p["perm"]] = True
+        out = {f"{path}/perm": onehot}
+        for i in range(n):
+            out.update(_draw_leaves(p["steps"][p["perm"].index(i)], f"{path}/child{i}"))
+        return out
+    if isinstance(p, dict):
+        out = {}
+        for k in sorted(p):
+            out.update(_draw_leaves(p[k], f"{path}/{k}"))
+        return out
+    if isinstance(p, list):
+        out = {}
+        for i, v in enumerate(p):
+            out.update(_draw_leaves(v, f"{path}/{i}"))
+        return out
+    assert isinstance(p, torch.Tensor), (path, type(p))
+    return {path: p.cpu().numpy()}
+
+
+def assert_same_draw_distribution(port_draws, jax_draws, z=6.0, ks_p=1e-6, rel_span=0.02):
+    """Hold the port's random draws against the JAX package's: two lists of
+    independent draws in the port's layout (Augmenter.draw,
+    DeviceDataset.draw_batch). Each leaf's draws are stacked into units
+    along its first axis (an image, or an occlusion attempt) and compared:
+
+      * each element's mean over the units, where a unit holds at most 64
+        (frequencies of Bernoulli draws, one-hot permutations), and each
+        unit's mean and spread, within `z` standard errors;
+      * the per-unit means' distributions by a two-sample Kolmogorov-Smirnov
+        test (p >= `ks_p`);
+      * with 3 channels last, the share of positions equal across channels
+        (imgaug's per_channel share), within `z` standard errors;
+      * the values drawn: the same set where they are integers (inclusive
+        or exclusive bounds), with 3 channels last also apart for the
+        positions equal across channels and the others, else minimum and
+        maximum within `rel_span` of the range (not for Gaussian noise,
+        which has none).
+
+    The draws are deterministic (seeded), so a pass stays a pass."""
+    from scipy.stats import ks_2samp
+
+    def stack(draws):
+        leaves = [_draw_leaves(d) for d in draws]
+        return {k: np.concatenate([leaf[k] for leaf in leaves]) for k in leaves[0]}
+
+    port, ref = stack(port_draws), stack(jax_draws)
+    assert set(port) == set(ref), (sorted(port), sorted(ref))
+
+    def close(name, a, b):
+        """Means of the unit samples a, b (U, ...) agree, elementwise."""
+        a, b = a.astype(np.float64), b.astype(np.float64)
+        se = np.sqrt(a.var(0) / len(a) + b.var(0) / len(b))
+        gap = np.abs(a.mean(0) - b.mean(0))
+        assert np.all(gap <= z * se + 1e-9), (name, a.mean(0), b.mean(0), se)
+
+    for key in sorted(port):
+        a, b = port[key], ref[key]
+        assert a.shape[1:] == b.shape[1:] and a.dtype.kind == b.dtype.kind, (key, a.shape, b.shape, a.dtype, b.dtype)
+        ua, ub = a.reshape(len(a), -1).astype(np.float64), b.reshape(len(b), -1).astype(np.float64)
+        if ua.shape[1] <= 64:
+            close(f"{key} elementwise", ua, ub)
+        close(f"{key} per-unit mean", ua.mean(1), ub.mean(1))
+        if ua.shape[1] > 1:
+            close(f"{key} per-unit spread", ua.std(1), ub.std(1))
+        ks = ks_2samp(ua.mean(1), ub.mean(1), method="asymp")
+        assert ks.pvalue >= ks_p, (key, ks)
+        if a.ndim >= 2 and a.shape[-1] == 3:
+            close(f"{key} channel-equal share", (a == a[..., :1]).all(-1).reshape(len(a), -1).mean(1),
+                  (b == b[..., :1]).all(-1).reshape(len(b), -1).mean(1))
+        if a.dtype.kind in "biu" or (np.all(a == np.round(a)) and np.all(b == np.round(b))):
+            assert set(np.unique(a).tolist()) == set(np.unique(b).tolist()), (key, np.unique(a), np.unique(b))
+            if a.ndim >= 2 and a.shape[-1] == 3:
+                # the shared and the per-channel draws' values apart
+                eq_a, eq_b = (a == a[..., :1]).all(-1), (b == b[..., :1]).all(-1)
+                for part_a, part_b in ((a[eq_a], b[eq_b]), (a[~eq_a], b[~eq_b])):
+                    assert set(np.unique(part_a).tolist()) == set(np.unique(part_b).tolist()), key
+        elif not key.endswith("/noise"):
+            span = max(float(b.max() - b.min()), 1e-12)
+            assert abs(float(a.min() - b.min())) <= rel_span * span, (key, a.min(), b.min())
+            assert abs(float(a.max() - b.max())) <= rel_span * span, (key, a.max(), b.max())
