@@ -7,7 +7,8 @@ We keep the exact file grammar but replace `eval` with a restricted AST
 evaluator (`safe_eval`) and parse the augmentation DSL into typed specs.
 """
 
+from .eval_config import EvalConfig, load_eval_config
 from .safe_eval import safe_eval
 from .train_config import TrainConfig, load_train_config
 
-__all__ = ["safe_eval", "TrainConfig", "load_train_config"]
+__all__ = ["safe_eval", "EvalConfig", "load_eval_config", "TrainConfig", "load_train_config"]

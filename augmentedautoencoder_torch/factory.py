@@ -75,6 +75,21 @@ def make_encode_fn(model: AAE):
     return encode
 
 
+def make_decode_fn(model: AAE):
+    """Decoder forward on the model's device: (B, latent) -> reconstruction
+    (B, H, W, C) in [0, 1] (the first output with an auxiliary mask)."""
+    if model.decoder is None:
+        raise ValueError("make_decode_fn needs an AAE built with its decoder")
+
+    @torch.inference_mode()
+    def decode(z) -> torch.Tensor:
+        z = torch.as_tensor(z, dtype=torch.float32, device=next(model.parameters()).device)
+        out = model.decoder(z)
+        return out[0] if model.auxiliary_mask else out
+
+    return decode
+
+
 def experiment_paths(experiment_name: str, experiment_group: str = ""):
     workspace_path = ws.get_workspace_path()
     log_dir = ws.get_log_dir(workspace_path, experiment_name, experiment_group)
@@ -134,22 +149,38 @@ def restore_experiment(
 def build_codebook_from_name(
     experiment_name: str,
     experiment_group: str = "",
+    return_dataset: bool = False,
+    return_decoder: bool = False,
     at_step: Optional[int] = None,
+    renderer=None,
     device: Optional[Device] = None,
-) -> Codebook:
-    """Everything inference needs for one experiment, on `device`."""
+):
+    """Everything inference needs for one experiment, on `device`: the
+    Codebook, then with `return_dataset` the experiment's `Dataset` (built
+    on `renderer` if given), then with `return_decoder` the decoder's
+    forward (`make_decode_fn`) or None when the checkpoint holds no
+    `decoder` keys (a converted encoder-only one)."""
     device = torch.device(device) if device is not None else default_device()
     cfg, paths, model, payload = restore_experiment(
         experiment_name, experiment_group, at_step, device
     )
-    viewsphere = embedding_viewsphere(cfg)
-    emb = payload.get("embedding_normalized")
     bbs = payload.get("embed_obj_bbs")
-    return Codebook(
+    codebook = Codebook(
         encode_fn=make_encode_fn(model),
-        viewsphere=viewsphere,
-        embedding_normalized=emb,
+        viewsphere=embedding_viewsphere(cfg),
+        embedding_normalized=payload.get("embedding_normalized"),
         embed_obj_bbs=None if bbs is None else np.asarray(bbs.numpy()),
         num_cyclo=cfg.num_cyclo,
         device=device,
     )
+    out = [codebook]
+    if return_dataset:
+        out.append(build_dataset(paths["dataset_path"], cfg, renderer=renderer))
+    if return_decoder:
+        decode = None
+        if "decoder" in payload:
+            full = AAE.from_config(cfg, precision="float32", train=True)
+            full.load_state_dict({**payload["state_dict"], **payload["decoder"]})
+            decode = make_decode_fn(full.to(device).eval())
+        out.append(decode)
+    return tuple(out) if len(out) > 1 else codebook

@@ -31,7 +31,10 @@ bit for bit. Every sum here is an explicit order of elementwise adds
 between the CPU and the GPU, and a mean multiplies by the f32 reciprocal
 of its count (`tree_mean`). CUDA's true division by a host scalar computes
 that product, while the CPU divides, so a mean written `x / n` rounded
-apart on the two devices. The ICP loop (pose/icp.py) is built from these
+apart on the two devices. Likewise every square root is `sqrt_rn`: torch's
+f32 square root on the CPU is off by one ulp on ~0.7% of inputs (its
+vectorized path), where CUDA's and the kernel's `__fsqrt_rn` are
+correctly rounded. The ICP loop (pose/icp.py) is built from these
 sums and from elementwise IEEE operations (+, -, *, /, sqrt), so it is
 meant to compute the same bits on the CPU and on the GPU; chip_smoke.py
 phase 5 compares one-detection frames of both.
@@ -73,6 +76,13 @@ def recip_f32(n: int) -> float:
     return float(np.float32(1.0) / np.float32(n))
 
 
+def sqrt_rn(x: Tensor) -> Tensor:
+    """The correctly rounded square root of f32 `x` on every device: the
+    f64 root rounded to f32 (53 >= 2 * 24 + 2 bits, so the double rounding
+    is innocuous)."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
 def tree_mean(x: Tensor, dim: int) -> Tensor:
     """`tree_sum` times the f32 reciprocal of the count: one multiply that
     the CPU and the GPU round alike (`x / n` divides on the CPU but
@@ -98,7 +108,7 @@ def _operands(src: Tensor, dst: Tensor) -> Tuple[Tensor, Tensor, Tensor, Tensor]
 
 def _distances(s: Tensor, min_score: Tensor) -> Tensor:
     """sqrt(max(|s|^2 + min score, 0)): the true nearest distance."""
-    return torch.sqrt(torch.clamp(sum3(s * s) + min_score, min=0.0))
+    return sqrt_rn(torch.clamp(sum3(s * s) + min_score, min=0.0))
 
 
 def min_argmin_torch(sp: Tensor, d: Tensor, dsq: Tensor) -> Tuple[Tensor, Tensor]:

@@ -13,9 +13,10 @@ correspondence step is `ops.icp_nn.batched_nn` (the CUDA kernel on a GPU).
 Every 3x3 product, the cross-covariance H and the point transform are
 written as explicit f32 sums of elementwise products: no matmul, so no
 TF32 on this path, and no torch.linalg (svd, inv, det). Every sum is a
-fixed-order `tree_sum` and every mean multiplies it by the f32 reciprocal
-of the count (ops/icp_nn.py), so the loop is meant to compute the same bits
-on the CPU and on the GPU.
+fixed-order `tree_sum`, every mean multiplies it by the f32 reciprocal
+of the count and every square root is the correctly rounded `sqrt_rn`
+(ops/icp_nn.py), so the loop computes the same bits on the CPU and on the
+GPU.
 
 Host half (numpy, as in the JAX package): `SynRenderer`, the cloud prep
 (`_real_cloud`, `_gate_dists_sq`, `_refinement_clouds`), `_apply_refinement`
@@ -36,7 +37,7 @@ import torch
 from ..factory import default_device
 from ..geometry.misc import rgbd_to_point_cloud
 from ..geometry.transform import rotation_angle
-from ..ops.icp_nn import batched_nn, sum3, tree_mean, tree_sum
+from ..ops.icp_nn import batched_nn, sqrt_rn, sum3, tree_mean, tree_sum
 
 Tensor = torch.Tensor
 
@@ -126,12 +127,12 @@ def _kabsch_rotation(H: Tensor) -> Tensor:
     package's method: products and 3x3 inverses only). Improper (det <= 0)
     or non-orthogonal (residual >= 1e-3) results are refused: identity.
     """
-    X = H / torch.sqrt(tree_sum((H * H).flatten(-2), -1))[:, None, None]
+    X = H / sqrt_rn(tree_sum((H * H).flatten(-2), -1))[:, None, None]
     for _ in range(16):
         X = 0.5 * (X + _inv3(X).transpose(-1, -2))
     eye = torch.eye(3, dtype=H.dtype, device=H.device)
     resid = _mm3(X.transpose(-1, -2), X) - eye
-    ortho_residual = torch.sqrt(tree_sum((resid * resid).flatten(-2), -1))
+    ortho_residual = sqrt_rn(tree_sum((resid * resid).flatten(-2), -1))
     proper = (_det3(X) > 0.0) & (ortho_residual < 1e-3)
     return torch.where(proper[:, None, None], X.transpose(-1, -2), eye)
 
@@ -192,7 +193,7 @@ def _converged(prev_err, mean_err, tolerance, prev_idx, idx, Ts, prev_tiny):
     idx_fixed = (idx == prev_idx).all(dim=-1)
     tr = Ts[:, 0, 0] + Ts[:, 1, 1] + Ts[:, 2, 2]
     cos_ang = torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0)
-    tn = torch.sqrt(sum3(Ts[:, :3, 3] * Ts[:, :3, 3]))
+    tn = sqrt_rn(sum3(Ts[:, :3, 3] * Ts[:, :3, 3]))
     tiny = (cos_ang > _COS_STEP_TOL_ROT) & (tn < STEP_TOL_TRANS)
     return err_static | idx_fixed | (tiny & prev_tiny), tiny
 

@@ -88,6 +88,24 @@ no jax. Phases, each fatal on failure:
                  restore_experiment. Prints ms/step (median of steps
                  50-200), its split into sample_batch / forward+backward /
                  optimizer, and the device busy share over 10 steps.
+  8. eval     -- the evaluation through cli.ae_eval.main at the template's
+                 width (92,232-row codebook) on a BOP scene of 24 images at
+                 720x540 (noise backgrounds, 3 instances each of a
+                 procedural 5,120-face mesh at 0.7-0.8 m; rgb, 16-bit
+                 depth, mask_visib, scene_gt_info written by the port's
+                 renderer and PNG writer), each GT crop's code planted in
+                 its GT view's row with a box 20-30 mm short in depth. Two
+                 runs: (a) RGB with ERROR_TYPES vsd, re, te, add, adi (B4),
+                 proj (B3); (b) ICP with ICP_FRAME_ACCURATE (B3, B4).
+                 Checks the planted rows and re <= 1e-3 deg in (a), that
+                 ICP lowers te for >= 90% of the estimates in (b) (the
+                 others listed), the first images again on the CPU (the
+                 same rows, poses within phase 5's bounds, errors equal in
+                 (a) and close in (b)), and that B3 and B4 were launched by
+                 this path. Prints seconds, estimates/s, the split (scene
+                 load, crop, pose, icp, errors, matching, writing, figures)
+                 and recall per error type; COMPUTE_PLOTS is on where
+                 matplotlib imports.
 
 The last lines are the kernels' JSON line, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Exits non-zero, without that line, on any
@@ -1682,6 +1700,374 @@ def train_phase(root, device, template_text, n_train=4096, n_bg=1000, num_iter=2
     return summary
 
 
+# ------------------------------------------------------------------ phase 8
+def _view_rotation(box, K, R_view):
+    """The rotation an object whose box is `box` (x, y, w, h) has when it
+    looks as the centred codebook view R_view does: the codebook's
+    off-centre correction (`Codebook._solve_6d`) for a detection of that
+    box, whose angles depend on the box centre only."""
+    import numpy as np
+
+    x, y, w, h = (float(v) for v in box)
+    tx, ty = (x + w / 2.0 - K[0, 2]) / K[0, 0], (y + h / 2.0 - K[1, 2]) / K[1, 1]
+    d_ay, d_ax = np.arctan(tx / np.sqrt(1.0 + ty ** 2)), -np.arctan(ty)
+    ca, sa, cb, sb = np.cos(d_ax), np.sin(d_ax), np.cos(d_ay), np.sin(d_ay)
+    R_x = np.array([[1, 0, 0], [0, ca, -sa], [0, sa, ca]])
+    R_y = np.array([[cb, 0, sb], [0, 1, 0], [-sb, 0, cb]])
+    return R_y @ R_x @ R_view
+
+
+def _mask_box(mask):
+    import numpy as np
+
+    ys, xs = np.nonzero(mask)
+    return [int(xs.min()), int(ys.min()), int(xs.max() - xs.min() + 1), int(ys.max() - ys.min() + 1)]
+
+
+def write_eval_scene(scene_dir, renderer, K, hw, views, rows, rng, instances=3, z_range=(700.0, 800.0),
+                     lateral=0.25, n_images=24):
+    """A BOP scene of `n_images` images of `instances` objects each, written
+    by the port's PNG writer: seeded noise backgrounds with the objects
+    z-buffered over them (rgb), 16-bit depth in mm, mask_visib,
+    scene_gt.json, scene_camera.json and scene_gt_info.json (bbox_obj,
+    bbox_visib, visib_fract). Instance j of image i sits at a depth in
+    z_range, `lateral` x the frame's width apart, with its rotation the
+    codebook view rows[i, j] turned for its box (`_view_rotation`, iterated
+    until the rendered box stops moving), so that the codebook pose of its
+    box has its GT rotation. Returns [(R, t, box)] per image."""
+    import numpy as np
+
+    from augmentedautoencoder_torch.utils.png import write_png
+
+    H, W = hw
+    for sub in ("rgb", "depth", "mask_visib"):
+        os.makedirs(os.path.join(scene_dir, sub), exist_ok=True)
+    gt, cam, gt_info, scene = {}, {}, {}, []
+    for i in range(n_images):
+        bgr = rng.randint(0, 256, (H, W, 3)).astype(np.uint8)
+        depth = np.zeros((H, W), np.float32)
+        insts, renders = [], []
+        for j in range(instances):
+            z = rng.uniform(*z_range)
+            u = W / 2 + (j - (instances - 1) / 2) * lateral * W + rng.uniform(-8, 8)
+            v = H / 2 + rng.uniform(-0.1, 0.1) * H
+            t = np.array([(u - K[0, 2]) * z / K[0, 0], (v - K[1, 2]) * z / K[1, 1], z])
+            R, box = views[rows[i, j]], None
+            for _ in range(8):
+                col, d = renderer.render(0, W, H, K, R, t, 10, 10000)
+                new = _mask_box(d > 0)
+                if new == box:
+                    break
+                box, R = new, _view_rotation(new, K, views[rows[i, j]])
+            else:
+                raise AssertionError(f"image {i} instance {j}: the box of its rotation does not settle")
+            insts.append((R, t, box))
+            renders.append((col, d))
+        for col, d in renders:
+            vis = (d > 0) & ((depth == 0) | (d < depth))
+            bgr[vis], depth[vis] = col[vis], d[vis]
+        infos = []
+        for j, (_, d) in enumerate(renders):
+            vis = (d > 0) & (depth == d)
+            write_png(os.path.join(scene_dir, "mask_visib", f"{i:06d}_{j:06d}.png"), vis.astype(np.uint8) * 255)
+            infos.append({"bbox_obj": _mask_box(d > 0), "bbox_visib": _mask_box(vis),
+                          "visib_fract": float(vis.sum() / (d > 0).sum())})
+        write_png(os.path.join(scene_dir, "rgb", f"{i:06d}.png"), bgr)
+        write_png(os.path.join(scene_dir, "depth", f"{i:06d}.png"), np.round(depth).astype(np.uint16))
+        gt[str(i)] = [{"obj_id": 1, "cam_R_m2c": R.ravel().tolist(), "cam_t_m2c": t.tolist()} for R, t, _ in insts]
+        cam[str(i)] = {"cam_K": K.ravel().tolist(), "depth_scale": 1.0}
+        gt_info[str(i)] = infos
+        scene.append(insts)
+    for name, data in (("scene_gt", gt), ("scene_camera", cam), ("scene_gt_info", gt_info)):
+        with open(os.path.join(scene_dir, f"{name}.json"), "w") as fh:
+            json.dump(data, fh)
+    return scene
+
+
+def _subscene(src, dst, n_images):
+    """Scene `dst` holding the first `n_images` images of scene `src`."""
+    import shutil
+
+    for sub in ("rgb", "depth", "mask_visib"):
+        os.makedirs(os.path.join(dst, sub))
+        for name in sorted(os.listdir(os.path.join(src, sub))):
+            if int(name[:6]) < n_images:
+                shutil.copy(os.path.join(src, sub, name), os.path.join(dst, sub, name))
+    for name in ("scene_gt", "scene_camera", "scene_gt_info"):
+        with open(os.path.join(src, f"{name}.json")) as fh:
+            data = json.load(fh)
+        with open(os.path.join(dst, f"{name}.json"), "w") as fh:
+            json.dump({k: v for k, v in data.items() if int(k) < n_images}, fh)
+
+
+EVAL_CFG_TEXT = """[METHOD]
+METHOD: aae
+[DATA]
+DATASET: synth
+DATASET_PATH: {dataset_path}
+OBJ_ID: 1
+SCENES: [{scene}]
+CAM_TYPE:
+[BBOXES]
+ESTIMATE_BBS: False
+SINGLE_INSTANCE: False
+ICP: {icp}
+ICP_FRAME_ACCURATE: {icp}
+[EVALUATION]
+COMPUTE_ERRORS: True
+EVALUATE_ERRORS: True
+[METRIC]
+ERROR_TYPES: ['vsd', 're', 'te', 'add', 'adi', 'proj']
+VSD_DELTA: 15
+VSD_TAU: 20
+VSD_COST: step
+ERROR_THRESH: 0.3
+ERROR_THRESH_DEG: 5
+ERROR_THRESH_MM: 50
+TOP_N_EVAL: 0
+[PLOT]
+COMPUTE_PLOTS: {plots}
+"""
+EVAL_RE_TOL_DEG = 1e-3  # every estimate's rotation error in the RGB run: the planted rows' poses
+# the CPU port against the card, the same images: poses within phase 5's
+# bounds; errors of equal poses equal (adi: B4's plain version against
+# B4, operation for operation), of ICP poses within what those bounds
+# carry over to (re in degrees, te / add / adi / proj in mm or px, vsd)
+EVAL_ICP_ERR_TOL = {"vsd": 0.02, "re": 0.1, "te": 0.1, "add": 0.1, "adi": 0.1, "proj": 0.1}
+
+
+def eval_phase(root, device, template_text, n_images=24, instances=3, image_hw=(540, 720), radius=40.0,
+               z_range=(700.0, 800.0), lateral=0.3, delta=(20.0, 30.0), cpu_images=3, cpu_icp_images=1,
+               seed=8):
+    """The evaluation through its entry point, cli.ae_eval.main, at the
+    template's width (128x128x3, filters [128, 256, 512, 512], latent 128,
+    the 92,232-row codebook) on one BOP scene of `n_images` images of
+    `instances` copies of a procedural 5,120-face mesh (radius `radius`)
+    at z_range. The seeded full-width encoder's f32 code of each GT crop
+    is planted in its GT view's codebook row (rows >= 40 deg apart, every
+    other row orthogonal to the planted codes) with a rendered box whose
+    projective depth lies `delta` mm short of the GT along the viewing
+    ray. Two runs: (a) the RGB path (B3; errors vsd, re, te, add, adi on
+    B4, proj); (b) ICP with ICP_FRAME_ACCURATE (B3, then B4 in the loop).
+    Checks: (a) every estimate's row is its planted row and its re <=
+    EVAL_RE_TOL_DEG; (b) ICP lowers te for >= 1 - MAX_WORSE_SHARE of the
+    estimates, the others listed; the same evaluation on the CPU for the
+    first `cpu_images` images (`cpu_icp_images` for (b)): the same rows,
+    poses within POSE_T_TOL_MM / POSE_R_TOL, errors equal in (a) and within
+    EVAL_ICP_ERR_TOL in (b). Returns a summary dict; raises on any failed
+    check."""
+    import numpy as np
+    import torch
+
+    from augmentedautoencoder_torch import factory
+    from augmentedautoencoder_torch import workspace as ws
+    from augmentedautoencoder_torch.cli import ae_eval
+    from augmentedautoencoder_torch.codebook import Codebook
+    from augmentedautoencoder_torch.data.dataset import extract_square_patch
+    from augmentedautoencoder_torch.evaluation.plots import have_matplotlib
+    from augmentedautoencoder_torch.models import AAE
+    from augmentedautoencoder_torch.ops import icp_nn
+    from augmentedautoencoder_torch.ops import multi_codebook as mc
+    from augmentedautoencoder_torch.ops import nn_query as nq
+    from augmentedautoencoder_torch.renderer import Renderer, load_mesh
+    from augmentedautoencoder_torch.renderer.procedural import make_textured_asymmetric, save_ply
+    from augmentedautoencoder_torch.training.checkpoint import CheckpointManager
+    from augmentedautoencoder_torch.utils.png import read_png
+
+    t_setup = time.perf_counter()
+    ws_path = os.path.join(root, "workspace")
+    os.environ["AE_WORKSPACE_PATH"] = ws_path
+    ws.init_workspace(ws_path)
+    ply = os.path.join(root, "eval_obj.ply")
+    save_ply(make_textured_asymmetric(subdivisions=4, radius=radius), ply)
+    with open(ws.get_config_file_path(ws_path, "eval"), "w") as fh:
+        fh.write("\n".join(f"MODEL_PATH: {ply}" if line.startswith("MODEL_PATH") else line
+                           for line in template_text.splitlines()) + "\n")
+    cfg, paths = factory.load_experiment_config("eval")
+    K = cfg.K
+    views = factory.embedding_viewsphere(cfg)
+    n_rows, n_est = len(views), n_images * instances
+    rng = np.random.RandomState(seed)
+    chosen = []  # planted rows, rotations >= 40 deg apart
+    for r in rng.permutation(n_rows):
+        if not chosen or _angles(views[[r]], views[chosen]).min() >= 40.0:
+            chosen.append(int(r))
+            if len(chosen) == n_est:
+                break
+    if len(chosen) < n_est:
+        raise AssertionError(f"only {len(chosen)} rotations 40 deg apart")
+    rows = np.array(chosen).reshape(n_images, instances)
+    data_root = os.path.join(root, "data")
+    scene_dir = os.path.join(data_root, "test", "000001")
+    renderer = Renderer([], backend="native", meshes=[load_mesh(ply)])
+    scene = write_eval_scene(scene_dir, renderer, K, image_hw, views, rows, rng, instances, z_range, lateral,
+                             n_images)
+    _subscene(scene_dir, os.path.join(data_root, "test", "000002"), cpu_images)
+    _subscene(scene_dir, os.path.join(data_root, "test", "000003"), cpu_icp_images)
+
+    # the seeded full-width model (decoder too, for the reconstruction
+    # figure) and its codebook with the GT crops' codes planted
+    torch.manual_seed(seed)
+    model = AAE.from_config(cfg, precision="float32", train=True).to(device).eval()
+    crops, boxes = [], []
+    for i in range(n_images):
+        img = read_png(os.path.join(scene_dir, "rgb", f"{i:06d}.png"))
+        for _, _, box in scene[i]:
+            crops.append(extract_square_patch(img, box, cfg.pad_factor, resize=(cfg.w, cfg.h)))
+            boxes.append(box)
+    with torch.no_grad():
+        x = torch.from_numpy(np.stack(crops)).to(device).to(torch.float32) / 255.0
+        codes = model.encode(x).double().cpu().numpy()
+    codes /= np.linalg.norm(codes, axis=1, keepdims=True)
+    cos = codes @ codes.T - 2 * np.eye(n_est)
+    if cos.max() > 0.999:
+        raise AssertionError(f"two planted codes have cosine {cos.max():.5f}")
+    emb = rng.randn(n_rows, codes.shape[1])
+    basis, _ = np.linalg.qr(codes.T)
+    emb -= (emb @ basis) @ basis.T
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    emb[rows.ravel()] = codes
+    wh = rng.randint(80, 160, (n_rows, 2))
+    xy = np.array([K[0, 2], K[1, 2]]) - wh / 2 + rng.randint(-4, 5, (n_rows, 2))
+    bbs = np.concatenate([xy, wh], axis=1).astype(np.int32)
+    short = rng.uniform(*delta, n_est)
+    for k, (r, box) in enumerate(zip(rows.ravel(), boxes)):
+        # a box centred on the principal point whose projective depth puts
+        # the estimate `short` mm before the GT along its viewing ray
+        z = scene[k // instances][k % instances][1][2]
+        w, h = (2 * np.round(np.asarray(box[2:], np.float64) * (z - short[k]) / cfg.radius / 2)).astype(int)
+        bbs[r] = [int(K[0, 2]) - w // 2, int(K[1, 2]) - h // 2, w, h]
+    CheckpointManager(paths["checkpoint_dir"]).save(0, model.state_dict(), emb.astype(np.float32), bbs)
+    del model
+    plots = have_matplotlib()
+    log(f"  scene: {n_images} images {image_hw[1]}x{image_hw[0]}, {instances} instances each at "
+        f"{z_range[0]:.0f}-{z_range[1]:.0f} mm; {n_rows} codebook rows, {n_est} planted (max cosine between "
+        f"them {cos.max():.4f}); matplotlib {'imports: COMPUTE_PLOTS True' if plots else 'missing: COMPUTE_PLOTS False'}"
+        f"; set up in {time.perf_counter() - t_setup:.1f} s")
+
+    for name, scene_id, icp in (("rgb", 1, False), ("icp", 1, True), ("rgb_cpu", 2, False),
+                                ("icp_cpu", 3, True)):
+        with open(ws.get_eval_config_file_path(ws_path, f"{name}.cfg"), "w") as fh:
+            fh.write(EVAL_CFG_TEXT.format(dataset_path=data_root, scene=scene_id, icp=icp, plots=plots))
+
+    rows_seen = []
+    pose_batch = Codebook.auto_pose6d_batch
+
+    def recording(self, *args, **kw):
+        out = pose_batch(self, *args, **kw)
+        if kw.get("depth_pred") is None:  # not ICP's stage 2
+            rows_seen.append(np.asarray(out[2]))
+        return out
+
+    wrappers = (mc.grouped_codebook_top1, mc.grouped_codebook_topk, nq.cosine_top1_cuda, icp_nn.batched_nn_cuda)
+    runs = {}
+    Codebook.auto_pose6d_batch = recording
+    try:
+        # ---- the main path: counts from 0, read right after
+        for fn in wrappers:
+            fn.launches = 0
+        for name in ("rgb", "icp"):
+            rows_seen.clear()
+            np.random.seed(seed)  # ICP's subsampling draws from the global stream
+            t0 = time.perf_counter()
+            out = ae_eval.main(["eval", name, "--eval_cfg", f"{name}.cfg"], device=device)
+            runs[name] = dict(out, wall=time.perf_counter() - t0, rows=list(rows_seen))
+        launches = {fn.__name__: fn.launches for fn in wrappers}
+        for name, dev in (("rgb_cpu", "cpu"), ("icp_cpu", "cpu")):
+            rows_seen.clear()
+            np.random.seed(seed)
+            torch.set_num_threads(os.cpu_count() or 1)
+            t0 = time.perf_counter()
+            out = ae_eval.main(["eval", name, "--eval_cfg", f"{name}.cfg"], device=dev)
+            runs[name] = dict(out, wall=time.perf_counter() - t0, rows=list(rows_seen))
+    finally:
+        Codebook.auto_pose6d_batch = pose_batch
+    log(f"  main-path launches: {launches}")
+    if str(device).startswith("cuda") and min(launches[k] for k in ("cosine_top1_cuda", "batched_nn_cuda")) < 1:
+        raise AssertionError(f"a kernel of the evaluation path was not launched by it: {launches}")
+
+    # ---- (a) the RGB run: planted rows, GT rotations
+    rgb, icp = runs["rgb"], runs["icp"]
+    if len(rgb["results"]) != n_est or len(icp["results"]) != n_est:
+        raise AssertionError(f"{len(rgb['results'])} / {len(icp['results'])} estimates for {n_est} GTs")
+    got_rows = np.concatenate(rgb["rows"])
+    want_rows = np.array([rows[r.im_id, r.gt_idx] for r in rgb["results"]])
+    if not np.array_equal(got_rows, want_rows):
+        bad = np.flatnonzero(got_rows != want_rows)
+        raise AssertionError(f"estimates {bad.tolist()} returned rows {got_rows[bad].tolist()}, "
+                             f"planted {want_rows[bad].tolist()}")
+    re_a = np.array([r.errors["re"] for r in rgb["results"]])
+    if not re_a.max() <= EVAL_RE_TOL_DEG:
+        raise AssertionError(f"rotation error up to {re_a.max():.2e} deg > {EVAL_RE_TOL_DEG}")
+    # ---- (b) ICP against the GT translations
+    te_a = np.array([r.errors["te"] for r in rgb["results"]])
+    te_b = np.array([r.errors["te"] for r in icp["results"]])
+    worse = np.flatnonzero(te_b >= te_a)
+    if worse.size:
+        log(f"  ICP did not lower te of estimates {worse.tolist()}: "
+            + ", ".join(f"{a:.2f} -> {b:.2f}" for a, b in zip(te_a[worse], te_b[worse])) + " mm")
+    if worse.size > MAX_WORSE_SHARE * n_est:
+        raise AssertionError(f"ICP did not lower te of {worse.size} of {n_est} estimates")
+
+    # ---- the CPU port on the first images
+    for name, ref in (("rgb_cpu", rgb), ("icp_cpu", icp)):
+        cpu = runs[name]
+        n = len(cpu["results"])
+        if n != instances * (cpu_images if name == "rgb_cpu" else cpu_icp_images):
+            raise AssertionError(f"{name}: {n} estimates")
+        if not all(np.array_equal(a, b) for a, b in zip(cpu["rows"], ref["rows"])):
+            raise AssertionError(f"{name}: rows {cpu['rows']} against {ref['rows'][:len(cpu['rows'])]}")
+        dt = max(float(np.abs(c.t_est - g.t_est).max()) for c, g in zip(cpu["results"], ref["results"]))
+        dr = max(float(np.abs(c.R_est - g.R_est).max()) for c, g in zip(cpu["results"], ref["results"]))
+        if not (dt <= POSE_T_TOL_MM and dr <= POSE_R_TOL):
+            raise AssertionError(f"{name}: card vs CPU poses differ by {dt} mm / {dr} in R")
+        derr = {et: max(abs(c.errors[et] - g.errors[et]) for c, g in zip(cpu["results"], ref["results"]))
+                for et in EVAL_ICP_ERR_TOL}
+        tol = EVAL_ICP_ERR_TOL if name == "icp_cpu" else {et: 0.0 for et in EVAL_ICP_ERR_TOL}
+        if name == "rgb_cpu" and (dt or dr):
+            raise AssertionError(f"{name}: the same rows gave other poses ({dt} mm, {dr})")
+        over = {et: d for et, d in derr.items() if not d <= tol[et]}
+        if over:
+            raise AssertionError(f"{name}: card vs CPU errors differ by {over}")
+        log(f"  {name}: {n} estimates on the CPU: the card's rows, max |dt| {dt:.2e} mm, max |dR| {dr:.2e}, "
+            "errors max |d| " + ", ".join(f"{et} {d:.2e}" for et, d in derr.items()))
+
+    summary = {"estimates": n_est, "launches": launches, "plots": plots}
+    # ---- device busy share of both runs over the first images, under torch.profiler
+    if str(device).startswith("cuda"):
+        for name, icp_on in (("rgb", False), ("icp", True)):
+            with open(ws.get_eval_config_file_path(ws_path, f"{name}_prof.cfg"), "w") as fh:
+                fh.write(EVAL_CFG_TEXT.format(dataset_path=data_root, scene=2, icp=icp_on, plots=False))
+            np.random.seed(seed)
+            prof = device_profile(lambda: ae_eval.main(["eval", f"{name}_prof", "--eval_cfg", f"{name}_prof.cfg"],
+                                                       device=device), n_frames=cpu_images)
+            summary[f"{name}_profile"] = prof
+            if prof is None:
+                log(f"  {name}: torch.profiler saw no device time (busy share not measured)")
+                continue
+            top = ", ".join(f"{k} {v:.3f}" for k, v in prof["top_ms_per_frame"])
+            log(f"  {name}, first {cpu_images} images under the profiler: device busy {prof['device_ms']:.1f} of "
+                f"{prof['wall_ms']:.1f} ms ({100 * prof['device_ms'] / prof['wall_ms']:.1f}% busy); top (ms/image): "
+                f"{top}")
+    for name in ("rgb", "icp"):
+        sec = runs[name]["seconds"]
+        run_s = sum(v for k, v in sec.items() if k not in ("setup", "figures"))
+        summary[name] = {"wall_s": runs[name]["wall"], "run_s": run_s, "estimates_per_s": n_est / run_s,
+                         "seconds": dict(sec), "recall": {et: s["recall"] for et, s in runs[name]["scores"].items()}}
+        log(f"  {name}: {n_est} estimates in {runs[name]['wall']:.2f} s (ae_eval.main), evaluation "
+            f"{run_s:.2f} s = {n_est / run_s:.2f} estimates/s; split (s): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sec.items()))
+        log(f"  {name} recall: " + ", ".join(f"{et} {s['recall']:.4f} ({s['n_correct']}/{s['n_gt']})"
+                                             for et, s in runs[name]["scores"].items()))
+    summary["re_max_deg"] = float(re_a.max())
+    summary["te_before_mm"], summary["te_after_mm"] = float(np.median(te_a)), float(np.median(te_b))
+    summary["worse"] = int(worse.size)
+    log(f"  rgb: planted rows retrieved for all {n_est}, re max {re_a.max():.2e} deg; te median "
+        f"{np.median(te_a):.3f} mm -> after ICP {np.median(te_b):.3f} mm (max {te_b.max():.3f}), lower for "
+        f"{n_est - worse.size} of {n_est}")
+    return summary
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     start = time.perf_counter()
@@ -1708,6 +2094,8 @@ def main() -> int:
         embed = embed_phase(os.path.join(root, "embed"), "cuda", template)
         log(f"phase 7: training at full width ({time.perf_counter() - start:.1f} s in)")
         train = train_phase(os.path.join(root, "train"), "cuda", template)
+        log(f"phase 8: evaluation at full width ({time.perf_counter() - start:.1f} s in)")
+        evaluation = eval_phase(os.path.join(root, "eval"), "cuda", template)
     log(f"all phases passed in {time.perf_counter() - start:.1f} s")
 
     kernels = []
@@ -1730,7 +2118,8 @@ def main() -> int:
             "launches_by_path": {"rgb_serving": summary["launches"].get(name, 0),
                                  "depth_serving": depth["launches"][name],
                                  "embed": embed["launches"][name],
-                                 "train": train["launches"][name]},
+                                 "train": train["launches"][name],
+                                 "eval": evaluation["launches"][name]},
             "timed": {"ms": "device, whole function from the user's inputs, cold L2",
                       "launch_ms": "device, kernel binding on operands in its input form, cold L2",
                       "call_ms": "host clock per call of the whole function, back to back, warm L2, "

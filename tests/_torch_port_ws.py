@@ -410,3 +410,193 @@ def assert_same_draw_distribution(port_draws, jax_draws, z=6.0, ks_p=1e-6, rel_s
             span = max(float(b.max() - b.min()), 1e-12)
             assert abs(float(a.min() - b.min())) <= rel_span * span, (key, a.min(), b.min())
             assert abs(float(a.max() - b.max())) <= rel_span * span, (key, a.max(), b.max())
+
+
+# ------------------------------------------------------------------ evaluation
+EVAL_K = np.array([[100.0, 0, 64], [0, 100.0, 48], [0, 0, 1]])
+EVAL_HW = (96, 128)
+
+EVAL_CFG = textwrap.dedent(
+    """
+    [METHOD]
+    METHOD: aae
+    [DATA]
+    DATASET: synth
+    DATASET_PATH: {dataset_path}
+    OBJ_ID: 1
+    SCENES: [1]
+    CAM_TYPE:
+    [BBOXES]
+    ESTIMATE_BBS: False
+    SINGLE_INSTANCE: True
+    ICP: False
+    [EVALUATION]
+    COMPUTE_ERRORS: True
+    EVALUATE_ERRORS: True
+    [METRIC]
+    ERROR_TYPES: ['vsd', 're', 'te', 'add', 'adi', 'proj']
+    VSD_DELTA: 15
+    VSD_TAU: 20
+    VSD_COST: step
+    ERROR_THRESH: 0.3
+    ERROR_THRESH_DEG: 15
+    ERROR_THRESH_MM: 20
+    TOP_N_EVAL: 1
+    TOP_N: 1
+    [PLOT]
+    COMPUTE_PLOTS: False
+    """
+)
+
+
+def off_centre_rotation(R_view, t):
+    """The rotation at which an object at translation t looks as the
+    centred view R_view does: the codebook's off-centre correction
+    (`Codebook._solve_6d`) applied to R_view."""
+    d_ay = np.arctan(t[0] / np.sqrt(t[2] ** 2 + t[1] ** 2))
+    d_ax = -np.arctan(t[1] / t[2])
+    ca, sa, cb, sb = np.cos(d_ax), np.sin(d_ax), np.cos(d_ay), np.sin(d_ay)
+    R_x = np.array([[1, 0, 0], [0, ca, -sa], [0, sa, ca]])
+    R_y = np.array([[cb, 0, sb], [0, 1, 0], [-sb, 0, cb]])
+    return R_y @ R_x @ R_view
+
+
+def eval_scene_poses(n_images=3, instances=2, seed=0):
+    """(poses, rows): per image [(R, t)] at 300-330 mm, laterally apart,
+    each R a codebook view (TINY_CFG's view sphere, distinct rows) turned
+    by `off_centre_rotation` for its t, and the view-sphere row of each
+    instance."""
+    from augmentedautoencoder_torch.geometry.view_sampler import viewsphere_rotations
+
+    views = viewsphere_rotations(12, 4, 300.0)
+    rng = np.random.RandomState(seed)
+    rows = rng.choice(len(views), (n_images, instances), replace=False)
+    offsets = np.linspace(-30.0, 30.0, instances) if instances > 1 else [0.0]
+    poses = []
+    for rs in rows:
+        ts = [np.array([tx, rng.uniform(-8, 8), rng.uniform(300, 330)]) for tx in offsets]
+        poses.append([(off_centre_rotation(views[r], t), t) for r, t in zip(rs, ts)])
+    return poses, rows
+
+
+def make_eval_workspace(root, poses=None, rows=None, decoder=True, step=10, seed=3):
+    """A workspace with experiment "obj" at TINY_CFG's width whose MODEL_PATH
+    is a procedural textured mesh, and with `poses` (eval_scene_poses) its
+    BOP scene under root/data (write_bop_scene). Flax parameters (with the
+    decoder unless `decoder` is False) from a fixed key; the codebook holds
+    the JAX encoder's codes of the JAX package's renders of every view,
+    except that each scene instance's `rows` entry holds the code of its
+    GT-box crop, so the evaluation retrieves its GT rotation. Saved as a
+    JAX checkpoint and as the port's `.pt` (both read the same rows). Sets
+    AE_WORKSPACE_PATH; returns (workspace path, mesh path, dataset root)."""
+    import json
+
+    import jax
+    import jax.numpy as jnp
+
+    from augmentedautoencoder_tpu import workspace as jws
+    from augmentedautoencoder_tpu.config import load_train_config
+    from augmentedautoencoder_tpu.data.dataset import Dataset as JaxDataset
+    from augmentedautoencoder_tpu.models import AAE as JaxAAE
+    from augmentedautoencoder_tpu.training.checkpoint import CheckpointManager as JaxCheckpoints
+    from augmentedautoencoder_torch.convert import params_from_jax
+    from augmentedautoencoder_torch.data.dataset import extract_square_patch
+    from augmentedautoencoder_torch.training.checkpoint import CheckpointManager
+    from augmentedautoencoder_torch.utils.png import read_png
+
+    root = str(root)
+    ply = write_procedural_mesh(os.path.join(root, "obj.ply"), subdivisions=2, radius=45.0)
+    ws_path = os.path.join(root, "workspace")
+    os.environ[jws.WORKSPACE_ENV_VAR] = ws_path
+    jws.init_workspace(ws_path)
+    cfg_path = jws.get_config_file_path(ws_path, "obj")
+    with open(cfg_path, "w") as fh:
+        fh.write(TINY_CFG.replace("MODEL_PATH: /nonexistent/model.ply", f"MODEL_PATH: {ply}"))
+    cfg = load_train_config(cfg_path)
+    model = JaxAAE.from_config(cfg)
+    x = jnp.zeros((1,) + cfg.shape)
+    key = {"params": jax.random.PRNGKey(seed)}
+    params = (model.init(key, x, x) if decoder else model.init(key, x, method=model.encode))["params"]
+    params = jax.tree.map(np.array, params)
+
+    def encode(crops):
+        z = np.asarray(model.apply({"params": params}, jnp.asarray(crops, jnp.float32) / 255.0, method=model.encode))
+        return (z / np.linalg.norm(z, axis=1, keepdims=True)).astype(np.float32)
+
+    dataset_path = jws.get_dataset_path(ws_path)
+    ds = JaxDataset(dataset_path, cfg, render_workers=1)
+    ds.renderer  # built before any render
+    crops, bbs = ds.render_embedding_image_batch(0, ds.embedding_size)
+    emb, bbs = encode(crops), bbs.astype(np.int32)
+    data_root = os.path.join(root, "data")
+    if poses is not None:
+        scene_dir = write_bop_scene(data_root, ply, poses)
+        with open(os.path.join(scene_dir, "scene_gt_info.json")) as fh:
+            info = json.load(fh)
+        for i, rs in enumerate(rows):
+            img = read_png(os.path.join(scene_dir, "rgb", f"{i:06d}.png"))
+            for m, r in enumerate(rs):
+                crop = extract_square_patch(img, info[str(i)][m]["bbox_obj"], cfg.pad_factor, resize=(cfg.w, cfg.h))
+                emb[r] = encode(crop[None])[0]
+    ckpt_dir = jws.get_checkpoint_dir(jws.get_log_dir(ws_path, "obj"))
+    JaxCheckpoints(ckpt_dir).save(step, {"params": params, "embedding_normalized": emb, "embed_obj_bbs": bbs})
+    CheckpointManager(ckpt_dir).save(step, params_from_jax(params, None, decoder=decoder), emb, bbs)
+    return ws_path, ply, data_root
+
+
+def write_bop_scene(dataset_root, ply, poses, K=EVAL_K, hw=EVAL_HW, writer="port", bbox=True):
+    """One BOP scene (test/000001) of `poses` (per image [(R, t)], obj_id 1)
+    rendered by the port's native rasterizer: rgb, 16-bit depth (mm),
+    mask_visib, scene_gt, scene_camera and scene_gt_info (bbox_obj unless
+    `bbox` is False, bbox_visib, visib_fract), written by the port's PNG
+    writer or by cv2 (`writer`). Returns the scene dir."""
+    import json
+
+    from augmentedautoencoder_torch.renderer import Renderer, load_mesh
+    from augmentedautoencoder_torch.utils.png import write_png
+
+    if writer == "cv2":
+        import cv2
+
+        def write(path, img):
+            assert cv2.imwrite(path, img)
+    else:
+        write = write_png
+    H, W = hw
+    renderer = Renderer([], backend="native", meshes=[load_mesh(ply)])
+    scene_dir = os.path.join(str(dataset_root), "test", "000001")
+    for sub in ("rgb", "depth", "mask_visib"):
+        os.makedirs(os.path.join(scene_dir, sub), exist_ok=True)
+    gt, cam, gt_info = {}, {}, {}
+    for i, insts in enumerate(poses):
+        bgr = np.zeros((H, W, 3), np.uint8)
+        depth = np.zeros((H, W), np.float32)
+        inst_depths = []
+        for R, t in insts:
+            bgr_m, depth_m = renderer.render(0, W, H, K, R, t, 10, 10000, random_light=False)
+            vis = (depth_m > 0) & ((depth == 0) | (depth_m < depth))
+            bgr[vis] = bgr_m[vis]
+            depth[vis] = depth_m[vis]
+            inst_depths.append(depth_m)
+        infos = []
+        for m, depth_m in enumerate(inst_depths):
+            vis_m = (depth_m > 0) & (depth == depth_m)
+            write(os.path.join(scene_dir, "mask_visib", f"{i:06d}_{m:06d}.png"), vis_m.astype(np.uint8) * 255)
+            info = {"visib_fract": float(vis_m.sum() / max((depth_m > 0).sum(), 1))}
+            for key, mask_m in (("bbox_obj", depth_m > 0), ("bbox_visib", vis_m)):
+                ys, xs = np.nonzero(mask_m)
+                info[key] = ([int(xs.min()), int(ys.min()), int(xs.max() - xs.min() + 1),
+                              int(ys.max() - ys.min() + 1)] if len(xs) else None)
+            if not bbox:
+                del info["bbox_obj"]
+            infos.append(info)
+        gt_info[str(i)] = infos
+        write(os.path.join(scene_dir, "rgb", f"{i:06d}.png"), bgr)
+        write(os.path.join(scene_dir, "depth", f"{i:06d}.png"), np.round(depth).astype(np.uint16))
+        gt[str(i)] = [{"obj_id": 1, "cam_R_m2c": np.asarray(R).ravel().tolist(), "cam_t_m2c": np.asarray(t).tolist()}
+                      for R, t in insts]
+        cam[str(i)] = {"cam_K": np.asarray(K).ravel().tolist(), "depth_scale": 1.0}
+    for name, data in (("scene_gt", gt), ("scene_camera", cam), ("scene_gt_info", gt_info)):
+        with open(os.path.join(scene_dir, f"{name}.json"), "w") as fh:
+            json.dump(data, fh)
+    return scene_dir

@@ -250,3 +250,22 @@ def test_cuda_binding_refuses_cpu_tensors():
         icp_nn.batched_nn_cuda(torch.from_numpy(src), torch.from_numpy(dst))
     with pytest.raises(ValueError, match="CUDA"):
         _cuda.batched_nn(torch.from_numpy(src), torch.from_numpy(dst))
+
+
+def test_sqrt_rn_is_correctly_rounded():
+    """sqrt_rn, the square root of the plain B4 distances and of the ICP
+    loop, equals numpy's correctly rounded f32 square root (as CUDA's and
+    the kernel's __fsqrt_rn are), so the CPU port and the card agree on
+    every distance; the plain distances are sqrt_rn of their clamped sums."""
+    from augmentedautoencoder_torch.ops import icp_nn
+
+    rng = np.random.RandomState(0)
+    x = np.concatenate([rng.rand(400_000) * 10, rng.rand(400_000) * 1e6, rng.rand(1000) * 1e-30]).astype(np.float32)
+    np.testing.assert_array_equal(icp_nn.sqrt_rn(torch.from_numpy(x)).numpy(), np.sqrt(x))
+    src = torch.from_numpy((rng.randn(2, 3000, 3) * 60 + [0, 0, 700]).astype(np.float32))
+    dst = torch.from_numpy((rng.randn(2, 3000, 3) * 60 + [5, -3, 705]).astype(np.float32))
+    dist, _ = icp_nn.batched_nn_torch(src, dst)
+    s, sp, d, dsq = icp_nn._operands(src, dst)
+    ms, _ = icp_nn.min_argmin_torch(sp, d, dsq)
+    total = torch.clamp(icp_nn.sum3(s * s) + ms, min=0.0).numpy()
+    np.testing.assert_array_equal(dist.numpy(), np.sqrt(total))

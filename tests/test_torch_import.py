@@ -29,8 +29,13 @@ _SCRIPT = textwrap.dedent(
     torch.set_num_threads(1)
     import augmentedautoencoder_torch as pkg
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+    for want in ("evaluation.evaluator", "evaluation.pose_errors", "evaluation.scene_loader",
+                 "evaluation.plots", "cli.ae_eval", "cli.compute_eval_errors", "cli.compute_bop_results",
+                 "cli.ae_init_workspace", "config.eval_config"):
+        assert pkg.__name__ + "." + want in names, want
     for name in names:
         importlib.import_module(name)
+    assert sys.modules.get("matplotlib") is None, "a module imports matplotlib at import time"
     sys.path.insert(0, os.path.join({repo!r}, "tests"))
     from _torch_port_ws import TINY_CFG, make_frames, write_test_cfg
     from augmentedautoencoder_torch import workspace as ws
