@@ -5,7 +5,9 @@ augmentedautoencoder_tpu/cli/ae_embed.py).
 Renders every embedding view on the host, encodes the views on the GPU and
 re-saves the experiment's `chkpt-<step>.pt` with the normalized embedding
 and, with EMBED_BB, the per-view rendered boxes inside (reference
-auto_pose/ae/ae_embed.py:53-93). Runs on the GPU: without CUDA it raises
+auto_pose/ae/ae_embed.py:53-93). MODEL dsprites embeds the 40-image
+orientation codebook of `data.dsprites.codebook_images` instead, without
+boxes, as the JAX package does. Runs on the GPU: without CUDA it raises
 unless `main` is given device="cpu".
 """
 
@@ -14,10 +16,12 @@ from __future__ import annotations
 import argparse
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .. import factory
-from ..codebook import Codebook
+from ..codebook import Codebook, f32_without_tf32
+from ..data.dsprites import codebook_images, load_dsprites_training_images
 from ..training.checkpoint import CheckpointManager
 from . import split_experiment_name
 
@@ -34,14 +38,19 @@ def main(argv: Optional[Sequence[str]] = None, device=None, profile: Optional[Di
 
     device = torch.device(device) if device is not None else factory.default_device()
     experiment_name, experiment_group = split_experiment_name(args.experiment_name)
-    cfg, _ = factory.load_experiment_config(experiment_name, experiment_group)
-    if cfg.model == "dsprites":
-        raise NotImplementedError(
-            "ae_embed: the dsprites codebook is not ported yet (ROADMAP A.8, item 1: dsprites)"
-        )
     cfg, paths, model, _ = factory.restore_experiment(
         experiment_name, experiment_group, args.at_step, device, precision="float32"
     )
+    mgr = CheckpointManager(paths["checkpoint_dir"])
+    if cfg.model == "dsprites":
+        # the orientation codebook from the pinned-latent images (reference codebook.py:164-185)
+        _, train_y = load_dsprites_training_images(cfg.model_path)
+        with f32_without_tf32():
+            z = factory.make_encode_fn(model)(torch.from_numpy(codebook_images(train_y)).to(device)).cpu().numpy()
+        z /= np.linalg.norm(z, axis=1, keepdims=True)
+        path = mgr.add_codebook(z, None, step=args.at_step)
+        print(f"dsprites codebook ({z.shape[0]} x {z.shape[1]}) saved into {path}")
+        return path
     dataset = factory.build_dataset(paths["dataset_path"], cfg)
     batch_size = args.batch_size or max(cfg.batch_size, 256)
     print(f"embedding {dataset.embedding_size} views (batch {batch_size}) on {device} ...")
@@ -49,9 +58,7 @@ def main(argv: Optional[Sequence[str]] = None, device=None, profile: Optional[Di
         factory.make_encode_fn(model), dataset.render_embedding_image_batch, dataset.embedding_size,
         batch_size, device=device, profile=profile,
     )
-    path = CheckpointManager(paths["checkpoint_dir"]).add_codebook(
-        embedding, obj_bbs if cfg.embed_bb else None, step=args.at_step
-    )
+    path = mgr.add_codebook(embedding, obj_bbs if cfg.embed_bb else None, step=args.at_step)
     print(f"codebook ({embedding.shape[0]} x {embedding.shape[1]}) saved into {path}")
     return path
 

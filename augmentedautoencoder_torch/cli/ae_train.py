@@ -10,8 +10,12 @@ SAVE_INTERVAL (reference auto_pose/ae/ae_train.py). `-gen` only renders
 the training set; `-d` writes a grid of one augmented batch instead of
 training. SIGINT asks for a gentle stop: finish the step, save, exit.
 
+MODEL dsprites trains on the heart images of the .npz at MODEL_PATH
+(`data.dsprites`), with no backgrounds and empty masks, as the JAX package
+does; it renders nothing, so `-gen` only says so.
+
 Runs on the GPU: without CUDA it raises unless `main` is given
-device="cpu". MODEL dsprites is not ported yet.
+device="cpu".
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 
 from .. import factory
 from .. import workspace as ws
+from ..data.dsprites import load_dsprites_training_images
 from ..data.pipeline import DeviceDataset
 from ..training import CheckpointManager, Trainer, make_reconstruction_fn
 from ..training.metrics import MetricWriter
@@ -46,14 +51,23 @@ def save_grid(path: str, batches, rows: int = 4) -> None:
 
 def load_device_dataset(cfg, paths, device, seed: int, gen_only: bool = False) -> Optional[DeviceDataset]:
     """Render or load the training set and the backgrounds (one
-    np.random.RandomState(seed) for both, in the JAX package's order), and
-    put them on `device`; None with `gen_only`."""
+    np.random.RandomState(seed) for both, in the JAX package's order), or
+    load the dsprites images, and put them on `device`; None with
+    `gen_only`."""
     rng = np.random.RandomState(seed)
     dataset = factory.build_dataset(paths["dataset_path"], cfg)
-    dataset.get_training_images(paths["dataset_path"], rng)
-    if gen_only:
-        return None
-    dataset.load_bg_images(paths["dataset_path"], rng)
+    if cfg.model == "dsprites":
+        if gen_only:
+            return None
+        dataset.train_x, dataset.train_y = load_dsprites_training_images(cfg.model_path)
+        dataset.mask_x = np.zeros(dataset.train_x.shape[:3], bool)
+        dataset.noof_obj_pixels = dataset.mask_x.shape[1] * dataset.mask_x.shape[2] - dataset.mask_x.sum(axis=(1, 2))
+        dataset.bg_imgs = np.zeros((1,) + dataset.train_x.shape[1:], np.uint8)
+    else:
+        dataset.get_training_images(paths["dataset_path"], rng)
+        if gen_only:
+            return None
+        dataset.load_bg_images(paths["dataset_path"], rng)
     occlusion_masks = None
     if cfg.realistic_occlusion:
         from ..data.occlusion_masks import synthesize_mask_bank, workspace_mask_bank
@@ -82,8 +96,6 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> Optional[Trainer]
     device = torch.device(device) if device is not None else factory.default_device()
     experiment_name, experiment_group = split_experiment_name(args.experiment_name)
     cfg, paths = factory.load_experiment_config(experiment_name, experiment_group, prefer_log_dir=False)
-    if cfg.model == "dsprites":
-        raise NotImplementedError("ae_train: the dsprites data is not ported yet (ROADMAP A.8, item 1: dsprites)")
     for key in ("checkpoint_dir", "train_fig_dir", "dataset_path"):
         os.makedirs(paths[key], exist_ok=True)
     # the cfg is copied into the log dir and re-read at inference (ae_train.py:72)
@@ -92,7 +104,8 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> Optional[Trainer]
 
     device_ds = load_device_dataset(cfg, paths, device, args.seed, gen_only=args.gen)
     if device_ds is None:
-        print("training data generated; exiting (-gen)")
+        print("dsprites renders nothing; exiting (-gen)" if cfg.model == "dsprites"
+              else "training data generated; exiting (-gen)")
         return None
     if args.d:
         x, y = device_ds.sample_batch(torch.Generator(device=device).manual_seed(args.seed), cfg.batch_size)

@@ -8,10 +8,14 @@ The JAX package's conventions, kept so its weights carry over:
     layer's size is int(H / prod(strides[i:])), as the reference computes it;
   * the BatchNorm after the Dense layer normalizes the flat h*w*C output
     (a BatchNorm1d), and the Dense output is read as NHWC (B, h, w, C);
-  * a 2x step is nearest upsampling followed by a SAME conv (the JAX
-    package's `_UpConv`, whose phase decomposition computes the same
-    function); any other step indexes rows and columns by `i * h // th`
-    (`_nn_resize`) before the conv;
+  * a step whose size is exactly twice the last map's, and the
+    reconstruction and mask heads where the output is, run as the JAX
+    package's `_UpConv`: `ops.fused_upconv.upsample2x_conv`, four
+    parity-phase convolutions over the map itself, so the port follows the
+    JAX arithmetic, not only its function, and the upsampled map never
+    exists; any other step indexes rows and columns by `i * h // th`
+    (`_nn_resize`) before the conv. The convolutions keep their
+    `nn.Conv2d` parameters, so checkpoints restore unchanged;
   * the reconstruction and mask heads run in f32.
 
 Tensors inside are NCHW; the decoder returns NHWC, as the JAX one does.
@@ -26,18 +30,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.fused_upconv import upsample2x_conv
 from .encoder import FlaxBatchNorm1d, FlaxBatchNorm2d
 
 
 def nn_resize(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """Nearest-neighbour resize of NCHW `x` to `size` (th, tw): output row r
     reads row r * h // th (likewise columns), the JAX package's
-    `_nn_resize` (tf.image.resize_nearest_neighbor). An exact 2x uses
-    `F.interpolate`, which reads the same rows."""
+    `_nn_resize` (tf.image.resize_nearest_neighbor)."""
     h, w = x.shape[2:]
     th, tw = size
-    if (th, tw) == (2 * h, 2 * w):
-        return F.interpolate(x, scale_factor=2, mode="nearest")
     ridx = torch.arange(th, device=x.device) * h // th
     cidx = torch.arange(tw, device=x.device) * w // tw
     return x.index_select(2, ridx).index_select(3, cidx)
@@ -86,11 +88,20 @@ class Decoder(nn.Module):
             x = self.bn_dense(x)
         x = x.reshape(-1, h0, w0, c0).permute(0, 3, 1, 2)  # NHWC rows, as Flax reshapes
         for i, conv in enumerate(self.convs):
-            x = F.relu(conv(nn_resize(x, self.layer_dims[i + 1])))
+            x = F.relu(resize_conv(conv, x, self.layer_dims[i + 1]))
             if self.bns is not None:
                 x = self.bns[i](x)
-        x = nn_resize(x.float(), self.output_hw)
-        recon = torch.sigmoid(self.reconstruction(x)).permute(0, 2, 3, 1)
+        x = x.float()
+        recon = torch.sigmoid(resize_conv(self.reconstruction, x, self.output_hw)).permute(0, 2, 3, 1)
         if self.mask_head is None:
             return recon
-        return recon, torch.sigmoid(self.mask_head(x)).permute(0, 2, 3, 1)
+        return recon, torch.sigmoid(resize_conv(self.mask_head, x, self.output_hw)).permute(0, 2, 3, 1)
+
+
+def resize_conv(conv: nn.Conv2d, x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """`conv` applied to `x` resized to `size`: fused where `size` is exactly
+    twice x's (the JAX decoder's `_UpConv`), else `nn_resize` then `conv`."""
+    h, w = x.shape[2:]
+    if tuple(size) == (2 * h, 2 * w):
+        return upsample2x_conv(x, conv.weight, conv.bias)
+    return conv(nn_resize(x, size))

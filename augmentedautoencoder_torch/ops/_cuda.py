@@ -4,7 +4,9 @@ The sources are `augmentedautoencoder_torch/csrc/*.cu` (codebook_query.cu:
 the codebook top-1 and top-k; icp_nn.cu: the ICP nearest neighbour). On
 first use they are compiled by `nvcc` for Hopper (sm_90a), one process per
 source, all started together, and linked into one shared library with a
-plain C interface under `build/aae_torch_kernels/<hash of the sources>/`. The
+plain C interface under `build/aae_torch_kernels/<hash of the sources>/`
+(or under the user cache where the package's parent is read-only,
+`utils.build_dirs`). The
 library is loaded with `ctypes`; nothing includes PyTorch's headers, so a
 build takes seconds. Nothing here runs at import time: the CPU tests import
 every module of the port on a machine without `nvcc` or a GPU.
@@ -25,9 +27,11 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils.build_dirs import build_root
+
 _PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG_DIR / "csrc"
-BUILD_ROOT = _PKG_DIR.parent / "build" / "aae_torch_kernels"
+BUILD_ROOT = build_root("aae_torch_kernels")
 LIB_NAME = "libaae_torch_kernels.so"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]

@@ -1,0 +1,112 @@
+"""Fused 2x nearest upsample + KxK SAME conv, without the upsampled map
+(port of augmentedautoencoder_tpu/ops/fused_upconv.py).
+
+Nearest upsampling by 2 means up[a, b] = x[a // 2, b // 2], so each output
+parity phase (p, q) of the high-resolution conv is a small conv over the
+original map whose kernel sums the taps of `w` that land on the same source
+pixel:
+
+    out[2i + p, 2j + q] = sum_{u, v} K_pq[u, v] . x[i + u, j + v]
+
+Tap d of a K-wide kernel reads source offset (p + d - (K - 1) // 2) // 2
+(`phase_offsets`). The phase kernels sum their taps in the JAX loop's order
+(d outer, e inner), so each f32 entry is the same chain of additions.
+
+The four phases are one `F.conv2d` with 4 * Cout output channels, then
+`F.pixel_shuffle(2)` interleaves them. All phases share one window of
+source offsets: for odd K the union of the two parities' windows is
+symmetric, [-(P + 1) // 2, (P + 1) // 2] with P = (K - 1) // 2. For K = 5
+both parities read -1..1, so every tap is real. For K = 3 parity 0 reads
+-1..0 and parity 1 reads 0..1: each phase is embedded in the common 3x3
+window with zero taps, which compute the same function (the JAX package
+convolves each phase over its own window; only cuDNN's summation order can
+differ). One cuDNN call a layer instead of four.
+
+The convolutions are cuDNN's (`F.conv2d`): the JAX module is XLA code, not
+a Pallas kernel. `upsample2x_conv_plain` is the unfused form (upsample,
+then the KxK conv), kept for the tests and the card's check.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def phase_offsets(p: int, K: int) -> List[int]:
+    """Source-row offset of each of the K taps for output parity `p`."""
+    P = (K - 1) // 2
+    return [(p + d - P) // 2 for d in range(K)]
+
+
+def _window(K: int) -> Tuple[int, int]:
+    offs = phase_offsets(0, K) + phase_offsets(1, K)
+    lo, hi = min(offs), max(offs)
+    assert lo == -hi, (K, lo, hi)
+    return lo, hi
+
+
+@lru_cache(maxsize=None)
+def _tap_slots(K: int) -> np.ndarray:
+    """(S, 2, 2, n, n) indices into w's K * K flattened taps (K * K names a
+    zero tap): slot s of phase (p, q) at window entry (u, v) is the s-th tap,
+    in d-outer, e-inner order, that lands there."""
+    lo, hi = _window(K)
+    n = hi - lo + 1
+    taps = {}
+    for p in (0, 1):
+        ro = phase_offsets(p, K)
+        for q in (0, 1):
+            co = phase_offsets(q, K)
+            for d in range(K):
+                for e in range(K):
+                    taps.setdefault((p, q, ro[d] - lo, co[e] - lo), []).append(d * K + e)
+    slots = np.full((max(map(len, taps.values())), 2, 2, n, n), K * K, np.int64)
+    for (p, q, u, v), ts in taps.items():
+        slots[: len(ts), p, q, u, v] = ts
+    return slots
+
+
+def phase_kernels(w: torch.Tensor) -> torch.Tensor:
+    """(Cout, Cin, 2, 2, n, n): the four phases' kernels of OIHW `w` (K odd)
+    on the common n x n window, each entry the left-to-right sum of its taps
+    in the JAX loop's order (a zero tap adds 0.0). Differentiable in `w`."""
+    cout, cin, K, _ = w.shape
+    slots = torch.from_numpy(_tap_slots(K)).to(w.device)
+    flat = torch.cat([w.reshape(cout, cin, K * K), w.new_zeros(cout, cin, 1)], dim=2)
+    kern = w.new_zeros((cout, cin) + tuple(slots.shape[1:]))
+    for s in range(slots.shape[0]):
+        kern = kern + flat[:, :, slots[s]]
+    return kern
+
+
+def phase_kernel(w: torch.Tensor, p: int, q: int):
+    """Phase (p, q)'s OIHW kernel on its own window, and its (pad_lo, pad_hi)
+    per spatial axis, as the JAX `phase_kernel` returns them (HWIO there)."""
+    K = w.shape[2]
+    lo, _ = _window(K)
+    ro, co = phase_offsets(p, K), phase_offsets(q, K)
+    rlo, rhi, clo, chi = min(ro), max(ro), min(co), max(co)
+    kern = phase_kernels(w)[:, :, p, q, rlo - lo:rhi - lo + 1, clo - lo:chi - lo + 1]
+    return kern, (-rlo, rhi), (-clo, chi)
+
+
+def upsample2x_conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """conv2d(nearest_upsample_2x(x), w, stride 1, SAME) (+ b) without the
+    upsampled map: x (B, Cin, H, W), w (Cout, Cin, K, K) with K odd, b (Cout,);
+    returns (B, Cout, 2H, 2W)."""
+    cout, cin, K, _ = w.shape
+    lo, _ = _window(K)
+    # output channel c * 4 + p * 2 + q is phase (p, q) of channel c: pixel_shuffle's order
+    kern = phase_kernels(w).permute(0, 2, 3, 1, 4, 5).reshape(4 * cout, cin, 1 - 2 * lo, 1 - 2 * lo)
+    bias = None if b is None else b.repeat_interleave(4)
+    return F.pixel_shuffle(F.conv2d(x, kern, bias, padding=-lo), 2)
+
+
+def upsample2x_conv_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The unfused form: nearest 2x upsample, then the KxK SAME conv."""
+    return F.conv2d(F.interpolate(x, scale_factor=2, mode="nearest"), w, b, padding="same")

@@ -3,8 +3,9 @@ augmentedautoencoder_tpu/renderer/native/binding.py).
 
 On first use `rasterizer.cpp` is compiled with g++ (-O3 -march=native
 -fopenmp, plain C ABI) into `build/aae_torch_host/<hash of source, flags
-and CPU model>/`, beside the CUDA kernels' build directory; `build/` is not part
-of the checkout. A failed build raises with the compiler's output: there is
+and CPU model>/`, beside the CUDA kernels' build directory (or under the
+user cache where the package's parent is read-only, `utils.build_dirs`);
+`build/` is not part of the checkout. A failed build raises with the compiler's output: there is
 no silent fallback to the numpy rasterizer.
 """
 
@@ -20,10 +21,11 @@ from typing import Optional
 
 import numpy as np
 
+from ...utils.build_dirs import build_root
 from ..mesh import Mesh
 
 _SRC = Path(__file__).resolve().parent / "rasterizer.cpp"
-BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "aae_torch_host"
+BUILD_ROOT = build_root("aae_torch_host")
 LIB_NAME = "librasterizer.so"
 CXX_FLAGS = ["-O3", "-march=native", "-fopenmp", "-shared", "-fPIC", "-std=c++17"]
 

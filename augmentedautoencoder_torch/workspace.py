@@ -80,5 +80,9 @@ def init_workspace(workspace_path: str) -> None:
     for name, dest_sub in ((_TRAIN_TEMPLATE, "cfg"), (_EVAL_TEMPLATE, "cfg_eval")):
         src = os.path.join(template_dir, name)
         dst = os.path.join(workspace_path, dest_sub, name)
-        if os.path.exists(src) and not os.path.exists(dst):
+        if not os.path.exists(src):
+            raise FileNotFoundError(
+                f"config template {src} is missing: the package was installed without its cfg_templates"
+            )
+        if not os.path.exists(dst):
             shutil.copy(src, dst)

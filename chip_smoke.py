@@ -71,7 +71,17 @@ no jax. Phases, each fatal on failure:
                  their own rows, and that B3 was launched by this path.
                  Prints views/s, the render / wait / H2D / encode / readback
                  split and the device busy share over 1,024 views.
-  7. train    -- training through cli.ae_train.main at the template's width
+  7. train    -- first the decoder's fused 2x convolution
+                 (ops.fused_upconv.upsample2x_conv: four parity-phase 3x3
+                 kernels in one cuDNN call, no upsampled map) against its
+                 plain form (nearest 2x, then the 5x5 conv) in f32 without
+                 TF32 at the template decoder's four 2x shapes at batch 64
+                 (8->16 512->512, 16->32 512->256, 32->64 256->128, 64->128
+                 128->3): the forward and the gradients of x, w and b within
+                 UPCONV_RTOL of the plain form computed in f64, each form's
+                 device ms, and one full-width step (ms, TFLOP, peak
+                 memory) under each decoder. Then
+                 training through cli.ae_train.main at the template's width
                  (128x128x3, filters [128, 256, 512, 512], latent 128, batch
                  64, L2 bootstrap 4, Adam 2e-4, the 8-op augmentation) on a
                  procedural 5,120-face mesh: 4,096 training pairs rendered
@@ -106,14 +116,29 @@ no jax. Phases, each fatal on failure:
                  load, crop, pose, icp, errors, matching, writing, figures)
                  and recall per error type; COMPUTE_PLOTS is on where
                  matplotlib imports.
+  9. dsprites -- MODEL dsprites through cli.ae_train.main (100 steps at
+                 64x64x1, the template's width and augmentation) and
+                 cli.ae_embed.main (the 40-row orientation codebook) on a
+                 synthetic dsprites-format .npz with the real latent grid
+                 (737,280 seeded 64x64 sprites), then the codebook queried
+                 against itself (B3). Checks the losses finite and falling,
+                 the checkpoints, the unit-row codebook restored, its images
+                 encoded on the card against the CPU port (max |dz| <=
+                 1e-4), the query against its plain version, and that B3
+                 was launched by this path.
+  10. jpeg    -- the port's PIL decode of tests/fixtures/torch_port/
+                 background_q95_420.jpg (baseline, 4:2:0, written by
+                 cv2.imwrite) equal byte for byte to the stored cv2.imread
+                 decode.
 
-The last lines are the kernels' JSON line, the nvidia-smi line, and
+Each phase's seconds are printed after the last. The last lines are the kernels' JSON line, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Exits non-zero, without that line, on any
 failure, without a GPU, or without the rest of the repository.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -123,7 +148,7 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-TEMPLATE = os.path.join(REPO, "augmentedautoencoder_tpu", "cfg_templates", "train_template.cfg")
+TEMPLATE = os.path.join(REPO, "augmentedautoencoder_torch", "cfg_templates", "train_template.cfg")
 CODEBOOK_SOURCE = "augmentedautoencoder_torch/csrc/codebook_query.cu"
 NN_SOURCE = "augmentedautoencoder_torch/csrc/icp_nn.cu"
 MARGIN = 1e-5  # indices must agree where the plain ranking is not this close
@@ -169,6 +194,17 @@ TRAIN_PARAM_TOL = 2e-6
 # matmuls); the trained encoder served against the trainer's, same device
 TRAIN_AUG_TOL = 1e-5
 TRAIN_SERVE_TOL = 1e-5
+# the decoder's fused 2x convolution against its plain form (upsample, then
+# the 5x5 conv), f32 without TF32, forward and the gradients of x, w and b:
+# each within UPCONV_RTOL of its tensor's largest |value| of the plain form
+# computed in f64. Both are cuDNN f32 sums of the same products in other
+# orders (36 against 100 taps a pixel); the f64 reference, because cuDNN's
+# f32 weight gradient of the plain form at 3 output channels is itself
+# 2.7e-2 off it (NVIDIA H100 80GB HBM3, 700 W; the fused form's 4e-7).
+UPCONV_RTOL = 1e-4
+# the template decoder's 2x steps: (input H = W, Cin, Cout), the last the
+# reconstruction head
+UPCONV_SHAPES = ((8, 512, 512), (16, 512, 256), (32, 256, 128), (64, 128, 3))
 # the 12 augmentation ops and the combinators, for the card-vs-CPU check of
 # the options the template leaves off
 ALL_OPS_CODE = """Sequential([
@@ -1425,6 +1461,120 @@ def train_step_flops(cfg) -> float:
     return float(counter.get_total_flops())
 
 
+@contextlib.contextmanager
+def plain_decoder():
+    """Within it, the decoder's 2x steps upsample, then convolve
+    (`upsample2x_conv_plain`): the port's decoder before the fused form."""
+    from augmentedautoencoder_torch.models import decoder
+    from augmentedautoencoder_torch.ops import fused_upconv
+
+    fused, decoder.upsample2x_conv = decoder.upsample2x_conv, fused_upconv.upsample2x_conv_plain
+    try:
+        yield
+    finally:
+        decoder.upsample2x_conv = fused
+
+
+def upconv_phase(root, template_text, batch=64, reps=10, seed=11, steps=12):
+    """The decoder's fused 2x convolution (`ops.fused_upconv.upsample2x_conv`)
+    against its plain form on the card, in f32 without TF32, at the
+    decoder's four 2x shapes of the template at batch `batch`: the forward
+    and the gradients of x, w and b within UPCONV_RTOL of each tensor's
+    largest |value| in the plain form computed in f64 (the plain form in f32
+    printed beside it), and each form's device ms (forward; forward +
+    backward).
+    Then one full-width training step (forward, backward, optimizer) under
+    each decoder: its ms (median of `steps`, synchronized), its FLOPs and
+    its peak allocated memory. Returns a summary dict."""
+    import numpy as np
+    import torch
+
+    from augmentedautoencoder_torch import factory
+    from augmentedautoencoder_torch.config import load_train_config
+    from augmentedautoencoder_torch.ops import fused_upconv as fu
+    from augmentedautoencoder_torch.training import make_optimizer
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    summary = {"shapes": []}
+    for hw, cin, cout in UPCONV_SHAPES:
+        x = torch.rand((batch, cin, hw, hw), generator=gen, device="cuda")
+        w = torch.randn((cout, cin, 5, 5), generator=gen, device="cuda") / (5 * cin ** 0.5)
+        b = torch.randn((cout,), generator=gen, device="cuda")
+        g = torch.randn((batch, cout, 2 * hw, 2 * hw), generator=gen, device="cuda")
+        got = {}
+        for name, fn, dt in (("fused", fu.upsample2x_conv, torch.float32), ("plain", fu.upsample2x_conv_plain, torch.float32),
+                             ("f64", fu.upsample2x_conv_plain, torch.float64)):
+            xs, ws, bs = (t.detach().to(dt, copy=True).requires_grad_() for t in (x, w, b))
+            y = fn(xs, ws, bs)
+            y.backward(g.to(dt))
+            got[name] = (y.detach(), xs.grad, ws.grad, bs.grad)
+
+        def rel(a, p):
+            return {k: float((u.double() - v.double()).abs().max() / v.double().abs().max())
+                    for k, u, v in zip(("y", "dx", "dw", "db"), a, p)}
+
+        errs, against = rel(got["fused"], got["f64"]), {"plain": rel(got["plain"], got["f64"]),
+                                                        "fused_vs_plain": rel(got["fused"], got["plain"])}
+        xs, ws, bs = (t.clone().requires_grad_() for t in (x, w, b))
+
+        def fwd(fn):
+            return lambda: (fn(x, w, b),)
+
+        def fwd_bwd(fn):
+            def run():
+                y = fn(xs, ws, bs)
+                y.backward(g)
+                return (y.detach(),)
+            return run
+
+        t = time_fns({"fused": fwd(fu.upsample2x_conv), "plain": fwd(fu.upsample2x_conv_plain),
+                      "fused_fb": fwd_bwd(fu.upsample2x_conv), "plain_fb": fwd_bwd(fu.upsample2x_conv_plain)}, reps)
+        shape = f"{hw}->{2 * hw}, {cin}->{cout}"
+        log(f"  fused 2x conv at {shape} (batch {batch}), max |d| / max |f64| against the plain form in f64: "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + "; the plain form in f32: "
+            + ", ".join(f"{k} {v:.2e}" for k, v in against["plain"].items()) + "; fused vs plain f32: "
+            + ", ".join(f"{k} {v:.2e}" for k, v in against["fused_vs_plain"].items())
+            + f"; device ms forward {t['fused']:.3f} vs {t['plain']:.3f}, forward + backward "
+              f"{t['fused_fb']:.3f} vs {t['plain_fb']:.3f}")
+        if not max(errs.values()) <= UPCONV_RTOL:
+            raise AssertionError(f"fused 2x conv at {shape} against the plain form in f64: {errs}, "
+                                 f"want each <= {UPCONV_RTOL}")
+        summary["shapes"].append({"shape": shape, "errs": errs, **against, "ms": t})
+        del x, w, b, g, xs, ws, bs, got
+
+    os.makedirs(root)
+    cfg_path = os.path.join(root, "template.cfg")
+    with open(cfg_path, "w") as fh:
+        fh.write(template_text)
+    cfg = load_train_config(cfg_path)
+    x = torch.rand((cfg.batch_size,) + tuple(cfg.shape), generator=gen, device="cuda")
+    y = torch.rand((cfg.batch_size,) + tuple(cfg.shape), generator=gen, device="cuda")
+    for name in ("fused", "plain"):
+        with (plain_decoder() if name == "plain" else contextlib.nullcontext()):
+            flops = train_step_flops(cfg)
+            model = factory.build_train_model(cfg, "cuda")
+            model.train()
+            optim = make_optimizer(model, cfg)
+            times = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                optim.zero_grad()
+                model(x, y, train=True).total_loss.backward()
+                optim.step()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = 1e3 * float(np.median(times[2:]))
+        summary[name] = {"step_ms": ms, "flops": flops, "peak_gib": peak}
+        log(f"  one full-width step ({cfg.batch_size} x {cfg.h}x{cfg.w}x{cfg.c}, forward, backward, Adam; "
+            f"median of {steps - 2}, synchronized) with the {name} decoder: {ms:.3f} ms, {flops / 1e12:.3f} TFLOP "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), peak allocated {peak:.2f} GiB")
+        del model, optim
+    return summary
+
+
 def train_phase(root, device, template_text, n_train=4096, n_bg=1000, num_iter=200, save_interval=100,
                 seed=7, radius=40.0, parity_batch=8, split_steps=10, profile_steps=10, timed_from=50):
     """Training through its entry point, cli.ae_train.main, at the template's
@@ -2068,35 +2218,231 @@ def eval_phase(root, device, template_text, n_images=24, instances=3, image_hw=(
     return summary
 
 
+# ------------------------------------------------------------------ phase 9
+DSPRITES_LATENT_SIZES = (1, 3, 6, 40, 32, 32)  # color, shape, scale, orientation, posX, posY
+
+
+def write_dsprites_npz(path, hw=64, seed=9):
+    """A dsprites-format .npz with the real latent grid (737,280 images of
+    `hw` x `hw`, {0, 1} uint8, latents_classes, metadata's latents_sizes):
+    three seeded star-shaped outlines, radius r(phi) = s (1 + sum_k a_k
+    cos(k (phi - theta) + b_k)), k = 1..3, at 6 scales, 40 orientations
+    theta and 32 x 32 positions (posX a column shift, posY a row shift)."""
+    import numpy as np
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    sizes = np.array(DSPRITES_LATENT_SIZES)
+    rng = np.random.RandomState(seed)
+    amp, phase = rng.uniform(0.05, 0.25, (3, 3)), rng.uniform(0.0, 2 * np.pi, (3, 3))
+    canvas = 3 * hw // 2
+    c0 = canvas / 2
+    yy, xx = np.mgrid[:canvas, :canvas] + 0.5 - c0
+    rho, phi = np.hypot(xx, yy), np.arctan2(yy, xx)
+    # window offset of each position: the sprite's centre moves over [hw / 4, 3 hw / 4]
+    offs = np.round(c0 - (hw / 4 + np.arange(32) * (hw / 2) / 31)).astype(np.int64)
+    imgs = np.empty(tuple(sizes) + (hw, hw), np.uint8)
+    k = np.arange(1, 4)[:, None, None]
+    for shape in range(3):
+        for scale in range(6):
+            for o in range(40):
+                theta = 2 * np.pi * o / 40
+                r = (0.5 + 0.1 * scale) * 0.18 * hw * (
+                    1 + (amp[shape][:, None, None] * np.cos(k * (phi - theta) + phase[shape][:, None, None])).sum(0))
+                win = sliding_window_view((rho <= r).astype(np.uint8), (hw, hw))
+                imgs[0, shape, scale, o] = win[np.ix_(offs, offs)].transpose(1, 0, 2, 3)
+    grids = np.meshgrid(*[np.arange(n) for n in sizes], indexing="ij")
+    latents = np.stack([g.reshape(-1) for g in grids], axis=1)
+    np.savez(path, imgs=imgs.reshape((-1, hw, hw)), latents_classes=latents,
+             latents_values=latents.astype(np.float32), metadata=np.array({"latents_sizes": sizes}))
+    return path
+
+
+def dsprites_phase(root, device, template_text, hw=64, num_iter=100, save_interval=50, seed=9):
+    """MODEL dsprites through its entry points, cli.ae_train.main and
+    cli.ae_embed.main, at the template's width with `hw` x `hw` x 1 inputs
+    (the template's augmentation) on a synthetic dsprites-format .npz of the
+    real latent grid (`write_dsprites_npz`), then the orientation codebook
+    queried against itself (nn_query.cosine_top1, B3). Checks the logged
+    losses finite and falling (mean of the last 5 below the first 5);
+    chkpt-<save_interval> and chkpt-<num_iter> written; the (40, latent)
+    unit-row codebook written into chkpt-<num_iter> and restored by
+    restore_experiment; the codebook's images encoded on `device` against
+    the port on the CPU from the same checkpoint (max |dz| <=
+    EMBED_CPU_TOL, raw and normalized); the stored codebook against the CPU
+    codes (<= EMBED_CPU_TOL); each row its own top-1. Returns a summary."""
+    import numpy as np
+    import torch
+
+    from augmentedautoencoder_torch import factory
+    from augmentedautoencoder_torch import workspace as ws
+    from augmentedautoencoder_torch.cli import ae_embed, ae_train
+    from augmentedautoencoder_torch.data.dsprites import codebook_images, load_dsprites_training_images
+    from augmentedautoencoder_torch.ops import icp_nn
+    from augmentedautoencoder_torch.ops import multi_codebook as mc
+    from augmentedautoencoder_torch.ops import nn_query as nq
+    from augmentedautoencoder_torch.training import CheckpointManager
+
+    ws_path = os.path.join(root, "workspace")
+    os.environ["AE_WORKSPACE_PATH"] = ws_path
+    ws.init_workspace(ws_path)
+    t0 = time.perf_counter()
+    npz = write_dsprites_npz(os.path.join(root, "dsprites.npz"), hw=hw, seed=seed)
+    make_s = time.perf_counter() - t0
+    subs = {"MODEL": "dsprites", "MODEL_PATH": npz, "H": hw, "W": hw, "C": 1, "NUM_ITER": num_iter,
+            "SAVE_INTERVAL": save_interval, "EMBED_BB": False}
+    lines = []
+    for line in template_text.splitlines():
+        key = line.split(":")[0].strip()
+        lines.append(f"{key}: {subs[key]}" if key in subs else line)
+    with open(ws.get_config_file_path(ws_path, "sprites"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    log(f"  synthetic dsprites .npz: {int(np.prod(DSPRITES_LATENT_SIZES))} images of {hw}x{hw} on the real "
+        f"latent grid {DSPRITES_LATENT_SIZES}, written in {make_s:.1f} s ({os.path.getsize(npz) / 2**30:.2f} GiB)")
+
+    # ---- the main path: counts from 0, read right after
+    wrappers = (mc.grouped_codebook_top1, mc.grouped_codebook_topk, nq.cosine_top1_cuda, icp_nn.batched_nn_cuda)
+    for fn in wrappers:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer = ae_train.main(["sprites", "--seed", str(seed)], device=device)
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ae_embed.main(["sprites"], device=device)
+    embed_s = time.perf_counter() - t0
+    cfg, _, model, payload = factory.restore_experiment("sprites", device=device)
+    codebook = payload["embedding_normalized"].to(device)
+    vals, idx = nq.cosine_top1(codebook, codebook)
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    log(f"  main-path launches: {launches}")
+    ends = np.asarray(trainer.step_end_times)
+    step_ms = float(np.median(np.diff(ends[min(20, len(ends) // 2):]))) * 1e3
+    log(f"  ae_train: {trainer.step} steps in {train_s:.1f} s ({cfg.h}x{cfg.w}x{cfg.c}, filters {cfg.num_filter}, "
+        f"latent {cfg.latent_space_size}, batch {cfg.batch_size}; load, steps, 2 saves), {step_ms:.3f} ms/step; "
+        f"ae_embed (dsprites codebook) in {embed_s:.1f} s")
+
+    paths = factory.experiment_paths("sprites")
+    with open(os.path.join(paths["checkpoint_dir"], "metrics.jsonl")) as fh:
+        total = np.array([json.loads(line)["total_loss"] for line in fh])
+    if not (len(total) >= 10 and np.isfinite(total).all()):
+        raise AssertionError(f"dsprites logged losses: {total.tolist()}")
+    first, last = float(total[:5].mean()), float(total[-5:].mean())
+    if not last < first:
+        raise AssertionError(f"the dsprites loss did not fall: first 5 {total[:5].tolist()}, last 5 {total[-5:].tolist()}")
+    steps = CheckpointManager(paths["checkpoint_dir"]).all_steps()
+    if not {save_interval, num_iter} <= set(steps) or payload["step"] != num_iter:
+        raise AssertionError(f"dsprites checkpoints {steps}, restored step {payload['step']}")
+    norms = codebook.norm(dim=1)
+    if tuple(codebook.shape) != (40, cfg.latent_space_size) or not bool(((norms - 1).abs() <= 1e-5).all()):
+        raise AssertionError(f"dsprites codebook {tuple(codebook.shape)}, row norms {norms.tolist()}")
+    if payload.get("embed_obj_bbs") is not None:
+        raise AssertionError("the dsprites codebook was saved with boxes")
+
+    # ---- the codebook's images on the device and on the CPU from the same checkpoint
+    _, train_y = load_dsprites_training_images(npz)
+    x = torch.from_numpy(codebook_images(train_y))
+    _, _, cpu_model, _ = factory.restore_experiment("sprites", device="cpu")
+    with torch.no_grad():
+        z_dev = model.encode(x.to(device)).cpu()
+        z_cpu = cpu_model.encode(x)
+    n_dev, n_cpu = (z / z.norm(dim=1, keepdim=True) for z in (z_dev, z_cpu))
+    dz, dn = float((z_dev - z_cpu).abs().max()), float((n_dev - n_cpu).abs().max())
+    dstored = float((codebook.cpu() - n_cpu).abs().max())
+    # each unit row is its own best match (Cauchy-Schwarz) up to rounding; the
+    # kernel's answer against its plain version on the same rows
+    plain_vals, plain_idx = nq.cosine_top1_plain(codebook, codebook)
+    own_cos = (codebook * codebook).sum(dim=1)
+    own = int((idx.cpu() == torch.arange(40)).sum())
+    self_best = bool(((vals - own_cos).abs() <= MARGIN).all())
+    same = bool(torch.equal(idx.cpu(), plain_idx.cpu())) and float((vals - plain_vals).abs().max()) <= VAL_TOL
+    log(f"  losses: {len(total)} logged, all finite; mean of the first 5 {first:.6f}, of the last 5 {last:.6f}; "
+        f"chkpt-{save_interval} and chkpt-{num_iter}; codebook (40, {cfg.latent_space_size}) unit rows, no boxes, "
+        f"restored by restore_experiment; its 40 images, {device} vs CPU: max |dz| {dz:.2e}, normalized {dn:.2e}, "
+        f"stored vs CPU {dstored:.2e} (tol {EMBED_CPU_TOL}); self-retrieval (B3): {own} of 40 own rows, every best "
+        f"cosine within {MARGIN} of the row's own: {self_best}, equal to the plain version: {same}")
+    if not (dz <= EMBED_CPU_TOL and dn <= EMBED_CPU_TOL and dstored <= EMBED_CPU_TOL and self_best and same):
+        raise AssertionError(f"dsprites codebook {device} vs CPU: dz {dz}, normalized {dn}, stored {dstored}; "
+                             f"self-retrieval {idx.tolist()} {vals.tolist()}, plain {plain_idx.tolist()}")
+    if str(device).startswith("cuda") and not launches["cosine_top1_cuda"]:
+        raise AssertionError(f"B3 was not launched by the dsprites path: {launches}")
+    return {"launches": launches, "step_ms": step_ms, "train_s": train_s, "embed_s": embed_s,
+            "loss_first5": first, "loss_last5": last, "dz": dz}
+
+
+# ------------------------------------------------------------------ phase 10
+JPEG_FIXTURE = os.path.join("tests", "fixtures", "torch_port", "background_q95_420.jpg")
+
+
+def jpeg_phase():
+    """The port's background decode (data.dataset.decode_bgr, PIL) of the
+    committed baseline 4:2:0 JPEG against the committed cv2.imread decode,
+    byte for byte, on this machine's Pillow and libjpeg."""
+    import numpy as np
+    import PIL
+    from PIL import features
+
+    from augmentedautoencoder_torch.data.dataset import decode_bgr
+
+    path = os.path.join(REPO, JPEG_FIXTURE)
+    want = np.load(path[:-len(".jpg")] + "_cv2.npy")
+    got = decode_bgr(path)
+    same = got.shape == want.shape and got.dtype == want.dtype and bool((got == want).all())
+    n_diff = int((got != want).sum()) if got.shape == want.shape else got.size
+    log(f"  {JPEG_FIXTURE} ({want.shape[1]}x{want.shape[0]}) through decode_bgr on Pillow {PIL.__version__} "
+        f"(libjpeg {features.version('jpg')}): {'equal to' if same else f'{n_diff} bytes differ from'} the stored "
+        f"cv2.imread decode")
+    if not same:
+        raise AssertionError(f"the PIL decode of {JPEG_FIXTURE} differs from cv2's in {n_diff} bytes")
+    return {"pillow": PIL.__version__, "libjpeg": features.version("jpg")}
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     start = time.perf_counter()
-    smi = device_phase()
+    seconds = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    smi = phase("1 device", device_phase)
     sys.path.insert(0, REPO)
     import torch
 
     log("phase 2: build")
-    build_phase()
+    phase("2 build", build_phase)
     log(f"phase 3: kernels vs plain versions (values within {VAL_TOL}; indices equal where "
         f"the plain ranking's margin exceeds {MARGIN}; B4 identical; times: median of 20, cold L2)")
+    t0 = time.perf_counter()
     errs, records = kernel_phase()
     for name, err in width_phase().items():
         errs[name] = max(errs[name], err)
     errs["batched_nn_cuda"], records["batched_nn_cuda"] = nn_phase()
+    seconds["3 kernels"] = time.perf_counter() - t0
     with open(TEMPLATE) as fh:
         template = fh.read()
     with tempfile.TemporaryDirectory(prefix="aae_chip_smoke_") as root:
         log(f"phase 4: serving at full width ({time.perf_counter() - start:.1f} s in)")
-        summary = serving_phase(os.path.join(root, "rgb"), "cuda", template)
+        summary = phase("4 serving", serving_phase, os.path.join(root, "rgb"), "cuda", template)
         log(f"phase 5: depth-refined serving at full width ({time.perf_counter() - start:.1f} s in)")
-        depth = depth_phase(os.path.join(root, "depth"), "cuda", template)
+        depth = phase("5 depth", depth_phase, os.path.join(root, "depth"), "cuda", template)
         log(f"phase 6: codebook embedding at full width ({time.perf_counter() - start:.1f} s in)")
-        embed = embed_phase(os.path.join(root, "embed"), "cuda", template)
-        log(f"phase 7: training at full width ({time.perf_counter() - start:.1f} s in)")
+        embed = phase("6 embed", embed_phase, os.path.join(root, "embed"), "cuda", template)
+        log(f"phase 7: training at full width ({time.perf_counter() - start:.1f} s in); first the decoder's fused "
+            f"2x convolution against its plain form (within {UPCONV_RTOL} of each tensor's largest, f64 reference)")
+        t0 = time.perf_counter()
+        upconv_phase(os.path.join(root, "upconv"), template)
         train = train_phase(os.path.join(root, "train"), "cuda", template)
+        seconds["7 train"] = time.perf_counter() - t0
         log(f"phase 8: evaluation at full width ({time.perf_counter() - start:.1f} s in)")
-        evaluation = eval_phase(os.path.join(root, "eval"), "cuda", template)
-    log(f"all phases passed in {time.perf_counter() - start:.1f} s")
+        evaluation = phase("8 eval", eval_phase, os.path.join(root, "eval"), "cuda", template)
+        log(f"phase 9: dsprites at the template's width, 64x64x1 ({time.perf_counter() - start:.1f} s in)")
+        sprites = phase("9 dsprites", dsprites_phase, os.path.join(root, "dsprites"), "cuda", template)
+    log(f"phase 10: jpeg ({time.perf_counter() - start:.1f} s in)")
+    phase("10 jpeg", jpeg_phase)
+    log(f"all phases passed in {time.perf_counter() - start:.1f} s; seconds per phase: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
 
     kernels = []
     for name, source, replaces, launches in (
@@ -2119,7 +2465,8 @@ def main() -> int:
                                  "depth_serving": depth["launches"][name],
                                  "embed": embed["launches"][name],
                                  "train": train["launches"][name],
-                                 "eval": evaluation["launches"][name]},
+                                 "eval": evaluation["launches"][name],
+                                 "dsprites": sprites["launches"][name]},
             "timed": {"ms": "device, whole function from the user's inputs, cold L2",
                       "launch_ms": "device, kernel binding on operands in its input form, cold L2",
                       "call_ms": "host clock per call of the whole function, back to back, warm L2, "

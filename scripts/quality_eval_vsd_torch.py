@@ -1,0 +1,401 @@
+"""Pose quality of a model the PyTorch port trains itself, through the port's
+command-line entry points on one CUDA card:
+
+  ae_init_workspace -> ae_train (30k iterations) -> ae_embed (92,232-row
+  codebook) -> synthetic BOP test scenes at held-out rotations -> ae_eval
+  (vsd / re / te / add and recall)
+
+on the procedural textured asymmetric object. It is the PyTorch side of
+scripts/quality_eval_vsd.py: the same TRAIN_CFG and EVAL_CFG, scene layout
+(make_scenes draws from a RandomState and from the global np.random in the
+same order, so the scenes of a seed are the same), mesh and arguments. The
+500 seeded 128x128 backgrounds are written as JPEG by PIL at OpenCV's
+default settings (quality 95, 4:2:0), and ae_train decodes them with PIL;
+the scene PNGs are written by the port's utils/png.write_png. The port
+trains in float32 only, and COMPUTE_PLOTS follows whether matplotlib
+imports.
+
+The round-5 recipe, with its bound of agreement (PERF.md, ROADMAP A.2):
+
+    python scripts/quality_eval_vsd_torch.py --icp --icp_frame --instances 3 \\
+        --topk_aggregate 8 --clutter 0.5 --workspace quality_ws \\
+        --out scripts/quality_vsd_torch_asym_clutter_inst3_icp_frame_agg8.json
+
+Each stage whose output exists in the workspace is skipped, and ae_train
+resumes from the newest checkpoint, so a run cut off goes on from where it
+stopped when run again with the same --workspace (the batches depend on
+the seed and the step only). Delete the workspace when the run is done:
+its checkpoint with Adam's state is ~356 MB.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+TRAIN_CFG = """
+[Paths]
+MODEL_PATH: {model_path}
+BACKGROUND_IMAGES_GLOB: {bg_glob}
+
+[Dataset]
+MODEL: reconst
+H: 128
+W: 128
+C: 3
+RADIUS: 550
+RENDER_DIMS: (360, 270)
+K: [540, 0, 180, 0, 540, 135, 0, 0, 1]
+VERTEX_SCALE: 1
+ANTIALIASING: 1
+PAD_FACTOR: 1.2
+CLIP_NEAR: 10
+CLIP_FAR: 10000
+NOOF_TRAINING_IMGS: {train_imgs}
+NOOF_BG_IMGS: 500
+
+[Augmentation]
+REALISTIC_OCCLUSION: {realistic_occlusion}
+SQUARE_OCCLUSION: {square_occlusion}
+NEIGHBOR_CLUTTER: {neighbor_clutter}
+NEIGHBOR_CLUTTER_COUNT: {neighbor_clutter_count}
+MAX_REL_OFFSET: 0.2
+CODE: Sequential([
+    Sometimes(0.5, Add((-25, 25), per_channel=0.3)),
+    Sometimes(0.4, GaussianBlur(np.random.rand())),
+    Sometimes(0.5, Multiply((0.6, 1.4), per_channel=0.5)),
+    Sometimes(0.5, Multiply((0.6, 1.4))),
+    Sometimes(0.5, ContrastNormalization((0.5, 2.2), per_channel=0.3))
+    ], random_order=False)
+
+[Embedding]
+EMBED_BB: True
+MIN_N_VIEWS: {views}
+NUM_CYCLO: {cyclo}
+
+[Network]
+BATCH_NORMALIZATION: {batch_norm}
+AUXILIARY_MASK: {aux_mask}
+VARIATIONAL: {variational}
+LOSS: L2
+BOOTSTRAP_RATIO: 4
+NORM_REGULARIZE: 0
+LATENT_SPACE_SIZE: 128
+NUM_FILTER: [128, 256, 512, 512]
+STRIDES: [2, 2, 2, 2]
+KERNEL_SIZE_ENCODER: 5
+KERNEL_SIZE_DECODER: 5
+
+[Training]
+OPTIMIZER: Adam
+NUM_ITER: {iters}
+BATCH_SIZE: 64
+LEARNING_RATE: 2e-4
+SAVE_INTERVAL: 10000
+PRECISION: float32
+
+[Queue]
+NUM_THREADS: 10
+QUEUE_SIZE: 50
+"""
+
+EVAL_CFG = """
+[METHOD]
+METHOD: aae
+
+[DATA]
+DATASET: asym_synth
+DATASET_PATH: {dataset_path}
+OBJ_ID: 1
+SCENES: [1]
+CAM_TYPE:
+
+[BBOXES]
+ESTIMATE_BBS: False
+SINGLE_INSTANCE: {single_instance}
+GT_MASKS: {gt_masks}
+ICP: {icp}
+TOPK_AGGREGATE: {topk_aggregate}
+TTA_CROPS: {tta_crops}
+TOPK_RESCORE: {topk_rescore}
+ICP_FRAME_ACCURATE: {icp_frame}
+
+[EVALUATION]
+COMPUTE_ERRORS: True
+EVALUATE_ERRORS: True
+
+[METRIC]
+ERROR_TYPES: ['vsd', 're', 'te', 'add']
+VSD_DELTA: 15
+VSD_TAU: 20
+VSD_COST: step
+ERROR_THRESH: 0.3
+ERROR_THRESH_DEG: 15
+ERROR_THRESH_MM: 100
+TOP_N_EVAL: {top_n_eval}
+TOP_N: 1
+
+[PLOT]
+COMPUTE_PLOTS: {compute_plots}
+"""
+
+SEED = 0  # ae_train's seed: one run, stated before it
+W, H = 360, 270
+K = np.array([[540.0, 0, 180], [0, 540.0, 135], [0, 0, 1]])
+RADIUS = 550.0
+
+# The JAX package's result for the round-5 recipe (TPU v5e,
+# scripts/quality_vsd_asym_clutter_inst3_icp_frame_agg8_r5seed.json) and the
+# bound of agreement fixed before the port's run: each recall at two standard
+# errors of the difference of two single-seed runs of 150 estimates,
+# 2 * sqrt(2 p (1 - p) / 150), below the JAX one; the medians a little over
+# 1.3x and 1.5x the JAX ones.
+TARGET = {"vsd_recall@0.3": 0.933, "re_recall@15deg": 0.86, "te_recall@100mm": 1.0, "add_recall@0.1d": 0.92,
+          "median_re_deg": 6.36, "median_te_mm": 3.63}
+BOUNDS = {"vsd_recall@0.3": (">=", 0.875), "re_recall@15deg": (">=", 0.78), "add_recall@0.1d": (">=", 0.857),
+          "te_recall@100mm": (">=", 0.98), "median_re_deg": ("<=", 8.5), "median_te_mm": ("<=", 5.5)}
+
+
+def make_scenes(dataset_root: str, model_path: str, n: int, seed: int = 123, instances: int = 1) -> None:
+    """Render held-out random rotations into a BOP-format scene dir, as the
+    JAX script's make_scenes does: the same draws in the same order, from
+    RandomState(seed) for the rotations and offsets and from the global
+    np.random (seeded with `seed`) for each render's random light; instances
+    z-buffered over a black frame, mask_visib and scene_gt_info from the
+    final z-buffer."""
+    from augmentedautoencoder_torch.geometry import transform
+    from augmentedautoencoder_torch.renderer import Renderer
+    from augmentedautoencoder_torch.renderer.mesh import load_mesh
+    from augmentedautoencoder_torch.utils.png import write_png
+
+    renderer = Renderer([], meshes=[load_mesh(model_path)])
+    scene_dir = os.path.join(dataset_root, "test", "000001")
+    for sub in ("rgb", "depth", "mask_visib"):
+        os.makedirs(os.path.join(scene_dir, sub), exist_ok=True)
+    rng = np.random.RandomState(seed)
+    # the renderer's random light draws from the global np.random, as in the reference
+    np.random.seed(seed)
+    # lateral placements that keep every instance fully in frame
+    offsets = np.linspace(-115.0, 115.0, instances) if instances > 1 else [0.0]
+    gt, cam, gt_info = {}, {}, {}
+    for i in range(n):
+        bgr = np.zeros((H, W, 3), np.uint8)
+        depth = np.zeros((H, W), np.float32)
+        entries, inst_depths = [], []
+        for tx in offsets:
+            R = transform.random_rotation_matrix(rng.rand(3))[:3, :3]
+            ty = float(rng.uniform(-25.0, 25.0)) if instances > 1 else 0.0
+            t = np.array([float(tx), ty, RADIUS])
+            bgr_m, depth_m = renderer.render(0, W, H, K, R, t, 10, 10000, random_light=True)
+            vis = (depth_m > 0) & ((depth == 0) | (depth_m < depth))
+            bgr[vis] = bgr_m[vis]
+            depth[vis] = depth_m[vis]
+            inst_depths.append(depth_m)
+            entries.append({"obj_id": 1, "cam_R_m2c": R.ravel().tolist(), "cam_t_m2c": t.tolist()})
+        infos = []
+        for m, depth_m in enumerate(inst_depths):
+            vis_m = (depth_m > 0) & (depth == depth_m)
+            write_png(os.path.join(scene_dir, "mask_visib", f"{i:06d}_{m:06d}.png"), vis_m.astype(np.uint8) * 255)
+            info = {"visib_fract": float(vis_m.sum() / max((depth_m > 0).sum(), 1))}
+            for key, mask_m in (("bbox_obj", depth_m > 0), ("bbox_visib", vis_m)):
+                ys, xs = np.nonzero(mask_m)
+                info[key] = ([int(xs.min()), int(ys.min()), int(xs.max() - xs.min() + 1), int(ys.max() - ys.min() + 1)]
+                             if len(xs) else None)
+            infos.append(info)
+        gt_info[str(i)] = infos
+        write_png(os.path.join(scene_dir, "rgb", f"{i:06d}.png"), bgr)
+        write_png(os.path.join(scene_dir, "depth", f"{i:06d}.png"), np.round(depth).astype(np.uint16))
+        gt[str(i)] = entries
+        cam[str(i)] = {"cam_K": K.ravel().tolist(), "depth_scale": 1.0}
+    for name, data in (("scene_gt", gt), ("scene_camera", cam), ("scene_gt_info", gt_info)):
+        with open(os.path.join(scene_dir, f"{name}.json"), "w") as fh:
+            json.dump(data, fh)
+
+
+def write_backgrounds(bg_dir: str, n: int = 500, seed: int = 0) -> None:
+    """The JAX script's `n` seeded 128x128 BGR noise images, as JPEG files
+    written by PIL with cv2.imwrite's defaults (quality 95, 4:2:0)."""
+    from PIL import Image
+
+    os.makedirs(bg_dir, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    for i in range(n):
+        bgr = rng.randint(0, 255, (128, 128, 3), np.uint8)
+        Image.fromarray(np.ascontiguousarray(bgr[:, :, ::-1])).save(
+            os.path.join(bg_dir, f"bg_{i:03d}.jpg"), quality=95, subsampling=2)
+
+
+def card_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def within_bounds(summary) -> dict:
+    return {k: bool(summary[k] >= v if op == ">=" else summary[k] <= v) for k, (op, v) in BOUNDS.items()}
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--iters", type=int, default=30000)
+    parser.add_argument("--views", type=int, default=2562)
+    parser.add_argument("--cyclo", type=int, default=36)
+    parser.add_argument("--train_imgs", type=int, default=2000)
+    parser.add_argument("--test_imgs", type=int, default=50)
+    parser.add_argument("--workspace", default="quality_ws")
+    parser.add_argument("--device", default=None, help="default: the CUDA card; 'cpu' rehearses at a tiny size")
+    parser.add_argument("--icp", action="store_true")
+    parser.add_argument("--clutter", type=float, default=0.0)
+    parser.add_argument("--clutter_count", type=int, default=1)
+    parser.add_argument("--occlusion", action="store_true")
+    parser.add_argument("--realistic_occlusion", type=float, default=0.0)
+    parser.add_argument("--aux_mask", action="store_true")
+    parser.add_argument("--variational", type=float, default=0.0)
+    parser.add_argument("--batch_norm", action="store_true")
+    parser.add_argument("--instances", type=int, default=1)
+    parser.add_argument("--topk_aggregate", type=int, default=1)
+    parser.add_argument("--tta_crops", type=int, default=1)
+    parser.add_argument("--icp_frame", action="store_true")
+    parser.add_argument("--topk_rescore", type=int, default=1)
+    parser.add_argument("--gt_masks", action="store_true")
+    parser.add_argument("--out", default=None)
+    args = parser.parse_args()
+
+    import torch
+
+    from augmentedautoencoder_torch import factory
+    from augmentedautoencoder_torch.cli import ae_embed, ae_eval, ae_init_workspace, ae_train
+    from augmentedautoencoder_torch.config import load_train_config
+    from augmentedautoencoder_torch.evaluation import plots
+    from augmentedautoencoder_torch.renderer.procedural import make_textured_asymmetric, save_ply
+    from augmentedautoencoder_torch.training import CheckpointManager
+
+    device = args.device or "cuda"
+    if device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("quality_eval_vsd_torch: no CUDA device (pass --device cpu to rehearse)")
+    ws = os.path.abspath(args.workspace)
+    os.environ["AE_WORKSPACE_PATH"] = ws
+    os.makedirs(ws, exist_ok=True)
+    model_path = os.path.join(ws, "asym.ply")
+    bg_dir = os.path.join(ws, "bg")
+    cfg_path = os.path.join(ws, "cfg", "asym_obj.cfg")
+    timings = {}
+
+    if not os.path.exists(cfg_path):
+        t0 = time.time()
+        ae_init_workspace.main()
+        save_ply(make_textured_asymmetric(subdivisions=5, radius=60.0), model_path)
+        write_backgrounds(bg_dir)
+        with open(cfg_path, "w") as fh:
+            fh.write(TRAIN_CFG.format(
+                model_path=model_path, bg_glob=os.path.join(bg_dir, "*.jpg"), train_imgs=args.train_imgs,
+                views=args.views, cyclo=args.cyclo, iters=args.iters, square_occlusion=args.occlusion,
+                realistic_occlusion=args.realistic_occlusion, neighbor_clutter=args.clutter,
+                neighbor_clutter_count=args.clutter_count, aux_mask=args.aux_mask,
+                variational=args.variational, batch_norm=args.batch_norm))
+        timings["init_s"] = round(time.time() - t0, 1)
+
+    mgr = CheckpointManager(factory.experiment_paths("asym_obj")["checkpoint_dir"])
+    step_ms = None
+    if max(mgr.all_steps(), default=0) < args.iters:
+        t0 = time.time()
+        trainer = ae_train.main(["asym_obj", "--seed", str(SEED)], device=device)
+        timings["train_s"] = round(time.time() - t0, 1)
+        ends = np.asarray(trainer.step_end_times)
+        step_ms = float(np.median(np.diff(ends[min(100, len(ends) // 2):]))) * 1e3
+        if trainer.step < args.iters:
+            print(f"stopped at step {trainer.step} of {args.iters}; run again with --workspace {ws} to resume")
+            return
+    payload = torch.load(mgr.path_for_step(max(mgr.all_steps())), map_location="cpu", weights_only=True)
+    if "embedding_normalized" not in payload:
+        t0 = time.time()
+        ae_embed.main(["asym_obj"], device=device)
+        timings["embed_s"] = round(time.time() - t0, 1)
+    del payload
+
+    dataset_root = os.path.join(ws, "bopdata" if args.instances == 1 else f"bopdata_inst{args.instances}")
+    if not os.path.exists(os.path.join(dataset_root, "test", "000001", "scene_gt.json")):
+        t0 = time.time()
+        make_scenes(dataset_root, model_path, args.test_imgs, instances=args.instances)
+        timings["scene_render_s"] = round(time.time() - t0, 1)
+
+    eval_name = "vsd_eval_icp" if args.icp else "vsd_eval"
+    for on, tag in ((args.instances > 1, f"_inst{args.instances}"), (args.gt_masks, "_masked"),
+                    (args.topk_aggregate > 1, f"_agg{args.topk_aggregate}"), (args.tta_crops > 1, f"_tta{args.tta_crops}"),
+                    (args.topk_rescore > 1, f"_rs{args.topk_rescore}"), (args.icp_frame, "_frame")):
+        if on:
+            eval_name += tag
+    with open(os.path.join(ws, "cfg_eval", "eval.cfg"), "w") as fh:
+        fh.write(EVAL_CFG.format(
+            dataset_path=dataset_root, icp=args.icp, top_n_eval=(-1 if args.instances > 1 else 1),
+            single_instance=(args.instances == 1), gt_masks=args.gt_masks, topk_aggregate=args.topk_aggregate,
+            tta_crops=args.tta_crops, topk_rescore=args.topk_rescore, icp_frame=args.icp_frame,
+            compute_plots=plots.have_matplotlib()))
+    t0 = time.time()
+    out = ae_eval.main(["asym_obj", eval_name], device=device)
+    timings["eval_s"] = round(time.time() - t0, 1)
+
+    with open(os.path.join(out["eval_dir"], "scores.json")) as fh:
+        scores = json.load(fh)
+    with open(os.path.join(out["eval_dir"], "results.json")) as fh:
+        results = json.load(fh)
+    re_errs = np.array([r["errors"]["re"] for r in results])
+    te_errs = np.array([r["errors"]["te"] for r in results])
+    vsd_errs = np.array([r["errors"]["vsd"] for r in results])
+    tc = load_train_config(cfg_path)
+    summary = {
+        "object": "asym_textured",
+        "pipeline": "ae_train -> ae_embed -> ae_eval (augmentedautoencoder_torch CLIs)",
+        "device": torch.cuda.get_device_name(0) if device == "cuda" else device,
+        "nvidia_smi": card_line() if device == "cuda" else None,
+        "torch": torch.__version__,
+        "seed": SEED,
+        "icp": bool(args.icp),
+        "precision": tc.precision,
+        "instances": args.instances,
+        "gt_masks": bool(args.gt_masks),
+        "topk_aggregate": args.topk_aggregate,
+        "tta_crops": args.tta_crops,
+        "topk_rescore": args.topk_rescore,
+        "icp_frame_accurate": bool(args.icp_frame),
+        "square_occlusion": bool(tc.square_occlusion),
+        "realistic_occlusion": tc.realistic_occlusion,
+        "neighbor_clutter": tc.neighbor_clutter,
+        "neighbor_clutter_count": tc.neighbor_clutter_count,
+        "auxiliary_mask": bool(tc.auxiliary_mask),
+        "variational": tc.variational,
+        "batch_norm": bool(tc.batch_normalization),
+        "iters": tc.num_iter,
+        "codebook_size": tc.embedding_size,
+        "test_imgs": len(results),
+        "median_est_time_s": round(float(np.median([r["time"] for r in results])), 3),
+        "vsd_recall@0.3": scores["vsd"]["recall"],
+        "re_recall@15deg": scores["re"]["recall"],
+        "te_recall@100mm": scores["te"]["recall"],
+        "add_recall@0.1d": scores.get("add", {}).get("recall"),
+        "median_re_deg": round(float(np.median(re_errs)), 2),
+        "median_te_mm": round(float(np.median(te_errs)), 2),
+        "median_vsd": round(float(np.median(vsd_errs)), 4),
+        "ms_per_step": step_ms,
+        "timings_s": timings,
+        "eval_stage_s": {k: round(float(v), 3) for k, v in out["seconds"].items()},
+        "jax_target_tpu_v5e_round5": TARGET,
+        "bounds": {k: f"{op} {v}" for k, (op, v) in BOUNDS.items()},
+    }
+    summary["within_bounds"] = within_bounds(summary)
+    print(json.dumps(summary, indent=1))
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as fh:
+            json.dump(summary, fh, indent=1)
+
+
+if __name__ == "__main__":
+    main()

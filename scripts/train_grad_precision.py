@@ -33,10 +33,10 @@ sys.path.insert(0, REPO)
 from augmentedautoencoder_torch import factory  # noqa: E402
 from augmentedautoencoder_torch.config import load_train_config  # noqa: E402
 from augmentedautoencoder_torch.models import losses  # noqa: E402
-from augmentedautoencoder_torch.models.decoder import nn_resize  # noqa: E402
+from augmentedautoencoder_torch.models.decoder import resize_conv  # noqa: E402
 from augmentedautoencoder_torch.training import make_optimizer  # noqa: E402
 
-TEMPLATE = os.path.join(REPO, "augmentedautoencoder_tpu", "cfg_templates", "train_template.cfg")
+TEMPLATE = os.path.join(REPO, "augmentedautoencoder_torch", "cfg_templates", "train_template.cfg")
 STEPS, TRIALS, BATCH = 100, 4, 8
 
 
@@ -53,9 +53,8 @@ def decoder_forward(self, z):
     h0, w0, c0 = self.first
     x = F.relu(self.dense(z)).reshape(-1, h0, w0, c0).permute(0, 3, 1, 2)
     for i, conv in enumerate(self.convs):
-        x = F.relu(conv(nn_resize(x, self.layer_dims[i + 1])))
-    x = nn_resize(x, self.output_hw)
-    return torch.sigmoid(self.reconstruction(x)).permute(0, 2, 3, 1)
+        x = F.relu(resize_conv(conv, x, self.layer_dims[i + 1]))
+    return torch.sigmoid(resize_conv(self.reconstruction, x, self.output_hw)).permute(0, 2, 3, 1)
 
 
 def batch(cfg, b, gen, device):

@@ -16,6 +16,15 @@ setup(
             "cfg_templates/*.cfg",
             "cfg_templates/cfg_m3vision/*.cfg",
         ],
+        "augmentedautoencoder_torch": [
+            "csrc/*.cu",
+            "csrc/*.cuh",
+            "csrc/*.h",
+            "renderer/native/*.cpp",
+            "renderer/native/*.h",
+            "cfg_templates/*.cfg",
+            "cfg_templates/cfg_m3vision/*.cfg",
+        ],
     },
     python_requires=">=3.10",
     entry_points={

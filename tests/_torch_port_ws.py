@@ -95,6 +95,38 @@ TINY_CFG = textwrap.dedent(
     """
 )
 
+DSPRITES_LATENT_SIZES = (1, 3, 6, 40, 32, 32)  # color, shape, scale, orientation, posX, posY
+
+
+def write_dsprites_npz(path, hw=8, seed=0):
+    """A dsprites-format .npz with the real latent grid (737,280 images) and
+    seeded binary `hw` x `hw` images (tests/test_aux.py's layout)."""
+    sizes = np.array(DSPRITES_LATENT_SIZES)
+    n = int(sizes.prod())
+    imgs = np.random.RandomState(seed).randint(0, 2, (n, hw, hw), dtype=np.uint8)
+    grids = np.meshgrid(*[np.arange(s) for s in sizes], indexing="ij")
+    latents_classes = np.stack([g.reshape(-1) for g in grids], axis=1)
+    np.savez(str(path), imgs=imgs, latents_classes=latents_classes,
+             latents_values=latents_classes.astype(np.float32), metadata=np.array({"latents_sizes": sizes}))
+    return str(path)
+
+
+def dsprites_cfg(npz_path, hw=8, num_iter=4, save_interval=2, batch_size=8):
+    """TINY_CFG as a MODEL dsprites experiment on `npz_path`: `hw` x `hw` x 1
+    inputs, latent 8, no augmentation, no boxes in the codebook."""
+    text = (TINY_CFG.replace("MODEL: reconst", "MODEL: dsprites")
+            .replace("MODEL_PATH: /nonexistent/model.ply", f"MODEL_PATH: {npz_path}")
+            .replace("H: 32", f"H: {hw}").replace("W: 32", f"W: {hw}").replace("C: 3", "C: 1")
+            .replace("EMBED_BB: True", "EMBED_BB: False").replace("MIN_N_VIEWS: 12", "MIN_N_VIEWS: 40")
+            .replace("NUM_CYCLO: 4", "NUM_CYCLO: 1").replace("LATENT_SPACE_SIZE: 16", "LATENT_SPACE_SIZE: 8")
+            .replace("NUM_ITER: 10", f"NUM_ITER: {num_iter}").replace("SAVE_INTERVAL: 10", f"SAVE_INTERVAL: {save_interval}")
+            .replace("BATCH_SIZE: 8", f"BATCH_SIZE: {batch_size}"))
+    lines = text.splitlines()
+    i = next(k for k, line in enumerate(lines) if line.startswith("CODE:"))
+    lines[i] = "CODE: Sequential([])"
+    return "\n".join(lines) + "\n"
+
+
 TEST_CFG = textwrap.dedent(
     """
     [auto_pose]

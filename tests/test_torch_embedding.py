@@ -19,7 +19,7 @@ from augmentedautoencoder_torch.cli import ae_embed
 from augmentedautoencoder_torch.codebook import Codebook
 from augmentedautoencoder_torch.training.checkpoint import CheckpointManager
 
-from _torch_port_ws import make_jax_workspace, write_procedural_mesh
+from _torch_port_ws import dsprites_cfg, make_jax_workspace, write_dsprites_npz, write_procedural_mesh
 
 torch.set_num_threads(2)
 ATOL = 1e-5
@@ -152,15 +152,32 @@ def test_ae_embed_needs_cuda_unless_given_the_cpu(ws):
         ae_embed.main(["obj"])
 
 
-def test_ae_embed_refuses_dsprites_until_training_is_ported(ws, tmp_path):
+def test_ae_embed_refuses_dsprites_until_training_is_ported(tmp_path, monkeypatch):
+    """MODEL dsprites, refused until the dsprites path was ported, now
+    embeds its orientation codebook: the port's ae_embed against the JAX
+    ae_embed on the same (converted) parameters, 40 unit rows within 1e-5,
+    re-saved into the checkpoint without boxes."""
+    import sys
+
+    from augmentedautoencoder_tpu.cli import ae_embed as jax_ae_embed
+    from augmentedautoencoder_tpu.training.checkpoint import CheckpointManager as JaxCheckpointManager
     from augmentedautoencoder_torch import workspace
 
-    with open(workspace.get_config_file_path(str(ws["root"] / "ws"), "obj")) as fh:
-        text = fh.read()
-    with open(workspace.get_config_file_path(str(ws["root"] / "ws"), "sprites"), "w") as fh:
-        fh.write(text.replace("MODEL: reconst", "MODEL: dsprites"))
-    with pytest.raises(NotImplementedError, match="A.8"):
-        ae_embed.main(["sprites"], device="cpu")
+    npz = write_dsprites_npz(tmp_path / "dsprites.npz")
+    root = tmp_path / "ws"
+    monkeypatch.setenv(workspace.WORKSPACE_ENV_VAR, str(root))  # restored after the test
+    make_jax_workspace(root, {"sprites": 5}, model_path=npz, cfg_text=dsprites_cfg(npz))
+    paths = factory.experiment_paths("sprites")
+    monkeypatch.setattr(sys, "argv", ["ae_embed", "sprites"])
+    jax_ae_embed.main()
+    want = np.asarray(JaxCheckpointManager(paths["checkpoint_dir"]).restore()["embedding_normalized"])
+    path = ae_embed.main(["sprites"], device="cpu")
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    emb = payload["embedding_normalized"].numpy()
+    assert emb.shape == want.shape == (40, 8) and emb.dtype == np.float32 and payload["step"] == 10
+    np.testing.assert_allclose(np.linalg.norm(emb, axis=1), 1.0, rtol=1e-6)
+    np.testing.assert_allclose(emb, want, atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(_top1(emb, emb), np.arange(40))
 
 
 def test_add_codebook_re_saves_the_checkpoint(tmp_path):

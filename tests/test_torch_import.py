@@ -132,6 +132,31 @@ def test_no_port_module_imports_jax_or_the_jax_package(root):
     assert not bad, bad
 
 
+@pytest.mark.parametrize("path", ["chip_smoke.py", "scripts/quality_eval_vsd_torch.py",
+                                  "scripts/train_grad_precision.py"])
+def test_port_scripts_read_no_file_of_the_jax_package(path):
+    """Their paths into the repo name the port's files (chip_smoke's
+    template is the port's own copy); the JAX package appears only in the
+    `replaces` file:line strings of chip_smoke's kernel line."""
+    with open(os.path.join(REPO, path)) as fh:
+        tree = ast.parse(fh.read())
+    joined = [node for node in ast.walk(tree) if isinstance(node, ast.Call)
+              and getattr(node.func, "attr", None) == "join"
+              and any(isinstance(a, ast.Constant) and a.value == "augmentedautoencoder_tpu" for a in node.args)]
+    assert not joined
+    strings = [n.value for n in ast.walk(tree) if isinstance(n, ast.Constant) and isinstance(n.value, str)
+               and "augmentedautoencoder_tpu" in n.value]
+    assert all(s.startswith("augmentedautoencoder_tpu/ops/") and ".py:" in s for s in strings), strings
+    if path == "chip_smoke.py":
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location("chip_smoke_paths", os.path.join(REPO, path))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        assert mod.TEMPLATE == os.path.join(REPO, "augmentedautoencoder_torch", "cfg_templates", "train_template.cfg")
+        assert os.path.isfile(mod.TEMPLATE)
+
+
 def test_default_device_raises_without_cuda(monkeypatch):
     from augmentedautoencoder_torch import factory
     from augmentedautoencoder_torch.codebook import Codebook

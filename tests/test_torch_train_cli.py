@@ -1,8 +1,8 @@
 """The port's `cli/ae_train` on the CPU (device="cpu") at a tiny width: it
 renders the training set of a procedural mesh, trains, writes checkpoints
 that serving restores, resumes where it stopped, writes its grids with the
-stdlib PNG writer (pixel for pixel cv2.imwrite's), and refuses a run
-without CUDA unless given the CPU, and MODEL dsprites."""
+stdlib PNG writer (pixel for pixel cv2.imwrite's), refuses a run
+without CUDA unless given the CPU, and trains MODEL dsprites."""
 
 import functools
 import json
@@ -20,7 +20,13 @@ from augmentedautoencoder_torch.training import CheckpointManager
 from augmentedautoencoder_torch.training.metrics import MetricWriter
 from augmentedautoencoder_torch.utils.png import write_png
 
-from _torch_port_ws import TINY_CFG, global_rng_guard, write_procedural_mesh  # noqa: F401 (global_rng_guard: autouse)
+from _torch_port_ws import (  # noqa: F401 (global_rng_guard: autouse)
+    TINY_CFG,
+    dsprites_cfg,
+    global_rng_guard,
+    write_dsprites_npz,
+    write_procedural_mesh,
+)
 
 torch.set_num_threads(1)
 
@@ -100,14 +106,17 @@ def test_metrics_jsonl(train_ws):
     assert all(np.isfinite(r["total_loss"]) for r in rows)
 
 
-def test_refuses_cpu_less_runs_and_dsprites(train_ws):
+def test_refuses_cpu_less_runs_and_dsprites(train_ws, tmp_path):
+    """A run without CUDA and without device="cpu" is refused; MODEL
+    dsprites, refused until the dsprites path was ported, now trains."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='device="cpu"'):
             ae_train.main(["obj"])
     with open(ws.get_config_file_path(train_ws["root"], "sprites"), "w") as fh:
-        fh.write(train_ws["text"].replace("MODEL: reconst", "MODEL: dsprites"))
-    with pytest.raises(NotImplementedError, match="dsprites"):
-        ae_train.main(["sprites"], device="cpu")
+        fh.write(dsprites_cfg(write_dsprites_npz(tmp_path / "dsprites.npz")))
+    trainer = ae_train.main(["sprites"], device="cpu")
+    assert trainer.step == 4 and trainer.dataset.cfg.model == "dsprites"
+    assert CheckpointManager(factory.experiment_paths("sprites")["checkpoint_dir"]).all_steps() == [2, 4]
 
 
 @pytest.mark.parametrize("shape", [(17, 23, 3), (9, 30), (5, 6, 1), (128, 384, 3)])
