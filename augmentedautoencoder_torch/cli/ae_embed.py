@@ -2,7 +2,8 @@
 [--at_step N] [--batch_size B]` -- build the codebook (port of
 augmentedautoencoder_tpu/cli/ae_embed.py).
 
-Renders every embedding view on the host, encodes the views on the GPU and
+Renders every embedding view on the host, encodes the views on the GPU in
+the experiment's PRECISION (bf16 convolutions, f32 latent head) and
 re-saves the experiment's `chkpt-<step>.pt` with the normalized embedding
 and, with EMBED_BB, the per-view rendered boxes inside (reference
 auto_pose/ae/ae_embed.py:53-93). MODEL dsprites embeds the 40-image
@@ -38,9 +39,8 @@ def main(argv: Optional[Sequence[str]] = None, device=None, profile: Optional[Di
 
     device = torch.device(device) if device is not None else factory.default_device()
     experiment_name, experiment_group = split_experiment_name(args.experiment_name)
-    cfg, paths, model, _ = factory.restore_experiment(
-        experiment_name, experiment_group, args.at_step, device, precision="float32"
-    )
+    # the model in the cfg's PRECISION, as the JAX ae_embed restores it
+    cfg, paths, model, _ = factory.restore_experiment(experiment_name, experiment_group, args.at_step, device)
     mgr = CheckpointManager(paths["checkpoint_dir"])
     if cfg.model == "dsprites":
         # the orientation codebook from the pinned-latent images (reference codebook.py:164-185)

@@ -159,7 +159,8 @@ def build_codebook_from_name(
     Codebook, then with `return_dataset` the experiment's `Dataset` (built
     on `renderer` if given), then with `return_decoder` the decoder's
     forward (`make_decode_fn`) or None when the checkpoint holds no
-    `decoder` keys (a converted encoder-only one)."""
+    `decoder` keys (a converted encoder-only one). Encoder and decoder
+    compute in the experiment's PRECISION, as the JAX package restores them."""
     device = torch.device(device) if device is not None else default_device()
     cfg, paths, model, payload = restore_experiment(
         experiment_name, experiment_group, at_step, device
@@ -179,7 +180,7 @@ def build_codebook_from_name(
     if return_decoder:
         decode = None
         if "decoder" in payload:
-            full = AAE.from_config(cfg, precision="float32", train=True)
+            full = AAE.from_config(cfg, train=True)  # cfg.precision, as the JAX restore
             full.load_state_dict({**payload["state_dict"], **payload["decoder"]})
             decode = make_decode_fn(full.to(device).eval())
         out.append(decode)

@@ -5,6 +5,12 @@ The sub-losses combine as in the reference AE (auto_pose/ae/ae.py:42-53):
 reconstruction + NORM_REGULARIZE * reg + VARIATIONAL * KL (+ mask MSE with
 the auxiliary mask head, decoder.py:134-142).
 
+`precision` is the JAX package's compute dtype: under "bfloat16" the
+convolutions and denses run in bf16 and the latent, reconstruction and mask
+heads in f32, while every parameter stays f32, so training updates f32
+parameters and every checkpoint holds f32, as the JAX one does. The
+bootstrapped loss runs on the f32 reconstruction.
+
 Serving needs only the encoder, so `AAE(...)` builds the encoder alone and
 its state dict is the encoder's, the one every serving checkpoint holds.
 `AAE(..., decoder=True)` (or `from_config(cfg, train=True)`) adds the
@@ -63,10 +69,6 @@ class AAE(nn.Module):
         super().__init__()
         if precision not in _DTYPES:
             raise ValueError(f"unknown precision: {precision!r}")
-        if decoder and precision != "float32":
-            raise NotImplementedError(
-                "the port trains in float32 only: PRECISION bfloat16 would hold the parameters in bf16"
-            )
         self.variational = variational
         self.auxiliary_mask = auxiliary_mask
         self.loss_type = loss_type
@@ -92,6 +94,7 @@ class AAE(nn.Module):
                 strides=tuple(reversed(strides)),
                 batch_norm=batch_norm,
                 auxiliary_mask=auxiliary_mask,
+                compute_dtype=_DTYPES[precision],
             )
             if decoder
             else None

@@ -16,7 +16,11 @@ The JAX package's conventions, kept so its weights carry over:
     exists; any other step indexes rows and columns by `i * h // th`
     (`_nn_resize`) before the conv. The convolutions keep their
     `nn.Conv2d` parameters, so checkpoints restore unchanged;
-  * the reconstruction and mask heads run in f32.
+  * precision follows the JAX decoder's `compute_dtype`: the parameters
+    stay f32 and each call casts them to it (the dense from z cast down,
+    every step, fused or resized; BatchNorm normalizes in f32 on f32
+    statistics and casts back), and the reconstruction and mask heads run
+    in f32 from the map cast up.
 
 Tensors inside are NCHW; the decoder returns NHWC, as the JAX one does.
 """
@@ -31,7 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_upconv import upsample2x_conv
-from .encoder import FlaxBatchNorm1d, FlaxBatchNorm2d
+from .encoder import FlaxBatchNorm1d, FlaxBatchNorm2d, conv_in, head_dtype, linear
 
 
 def nn_resize(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
@@ -58,9 +62,11 @@ class Decoder(nn.Module):
         strides: Sequence[int] = (2, 2, 2, 2),  # already reversed
         batch_norm: bool = False,
         auxiliary_mask: bool = False,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         h, w, c = output_shape
+        self.compute_dtype = compute_dtype
         self.output_hw = (h, w)
         self.auxiliary_mask = auxiliary_mask
         strides = list(strides)
@@ -83,7 +89,7 @@ class Decoder(nn.Module):
 
     def forward(self, z: torch.Tensor):
         h0, w0, c0 = self.first
-        x = F.relu(self.dense(z.float()))
+        x = F.relu(linear(self.dense, z.to(self.compute_dtype)))
         if self.bn_dense is not None:
             x = self.bn_dense(x)
         x = x.reshape(-1, h0, w0, c0).permute(0, 3, 1, 2)  # NHWC rows, as Flax reshapes
@@ -91,7 +97,7 @@ class Decoder(nn.Module):
             x = F.relu(resize_conv(conv, x, self.layer_dims[i + 1]))
             if self.bns is not None:
                 x = self.bns[i](x)
-        x = x.float()
+        x = x.to(head_dtype(self.compute_dtype))
         recon = torch.sigmoid(resize_conv(self.reconstruction, x, self.output_hw)).permute(0, 2, 3, 1)
         if self.mask_head is None:
             return recon
@@ -99,9 +105,10 @@ class Decoder(nn.Module):
 
 
 def resize_conv(conv: nn.Conv2d, x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
-    """`conv` applied to `x` resized to `size`: fused where `size` is exactly
-    twice x's (the JAX decoder's `_UpConv`), else `nn_resize` then `conv`."""
+    """`conv` applied to `x` resized to `size`, in x's dtype (its parameters
+    cast to it): fused where `size` is exactly twice x's (the JAX decoder's
+    `_UpConv`), else `nn_resize` then `conv`."""
     h, w = x.shape[2:]
     if tuple(size) == (2 * h, 2 * w):
-        return upsample2x_conv(x, conv.weight, conv.bias)
-    return conv(nn_resize(x, size))
+        return upsample2x_conv(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype))
+    return conv_in(conv, nn_resize(x, size))

@@ -10,8 +10,15 @@ the JAX package's conventions kept exactly so its weights carry over:
     `FlaxBatchNorm2d`);
   * the feature map is flattened in NHWC order, so the Flax `latent`
     kernel maps over by a plain transpose;
-  * the latent head runs in f32 even when the convs run in bf16;
   * optional VAE head: sigma = softplus(1e-8 + Dense(x)).
+
+Precision follows the JAX package's `compute_dtype`: the parameters stay
+f32 and each call casts them to the compute dtype, as a Flax layer with
+`dtype=bfloat16` casts its input, kernel and bias (`conv2d`, `linear`);
+the gradients reach the f32 parameters through those casts. BatchNorm
+keeps f32 parameters and statistics and normalizes in f32 before it casts
+its output back. The latent head (and the VAE's sigma) runs in f32 from
+the bf16 map cast up (`head_dtype`).
 
 Inputs are NHWC floats in [0, 1], as in the JAX package.
 """
@@ -24,6 +31,30 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.fused_upconv import conv2d
+
+
+def head_dtype(compute_dtype: torch.dtype) -> torch.dtype:
+    """The dtype of the f32 heads under `compute_dtype`: f32, or f64 when
+    the whole model runs in f64 (the checks' reference)."""
+    return torch.promote_types(compute_dtype, torch.float32)
+
+
+def conv_in(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """`conv` on x in x's dtype, its parameters cast to it (Flax
+    `nn.Conv(dtype=...)`)."""
+    return conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), stride=conv.stride, padding=conv.padding)
+
+
+def linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """`lin` on x in x's dtype, its parameters cast to it (Flax
+    `nn.Dense(dtype=...)`): in bf16 the bias is added to the rounded
+    product, as Flax adds it."""
+    w, b = lin.weight.to(x.dtype), lin.bias.to(x.dtype)
+    if x.dtype != torch.bfloat16:
+        return F.linear(x, w, b)
+    return F.linear(x, w) + b
 
 
 class _FlaxBatchNorm:
@@ -38,24 +69,28 @@ class _FlaxBatchNorm:
         folds in the unbiased one, which no flag turns off); as Flax
         keeps no batch count, `num_batches_tracked` stays as it was.
 
-    In eval mode it is torch's BatchNorm on the running statistics."""
+    In eval mode the same y on the running statistics. Either way x is
+    normalized in f32 (f64 in an f64 model), as Flax's `force_float32_reductions`
+    promotes it, and y is cast back to x's dtype: in bf16 the parameters
+    and statistics stay f32."""
 
     flax_momentum = 0.99
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return super().forward(x)
         dims = [0] + list(range(2, x.dim()))
         shape = [1, -1] + [1] * (x.dim() - 2)
-        xf = x.float()
-        mean = xf.mean(dims)
-        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
-        with torch.no_grad():
-            m = self.flax_momentum
-            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.float().view(shape)
+        xf = x.to(head_dtype(x.dtype))
+        if self.training:
+            mean = xf.mean(dims)
+            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.flax_momentum
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
 
 
@@ -105,21 +140,16 @@ class Encoder(nn.Module):
         flat = h * w * c
         self.latent = nn.Linear(flat, latent_space_size)
         self.latent_sigma = nn.Linear(flat, latent_space_size) if variational else None
-        # convs (and BN) hold their weights in the compute dtype; the
-        # latent heads stay f32
-        self.convs.to(compute_dtype)
-        if self.bns is not None:
-            self.bns.to(compute_dtype)
 
     def forward(self, x: torch.Tensor):
         """x: (B, H, W, C) float. Returns z (B, latent) f32, or (z, sigma)."""
         x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
         for i, conv in enumerate(self.convs):
-            x = F.relu(conv(F.pad(x, self._pads[i])))
+            x = F.relu(conv_in(conv, F.pad(x, self._pads[i])))
             if self.bns is not None:
                 x = self.bns[i](x)
-        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1).float()  # NHWC flatten
-        z = self.latent(x)
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1).to(head_dtype(self.compute_dtype))  # NHWC flatten
+        z = linear(self.latent, x)
         if not self.variational:
             return z
-        return z, F.softplus(1e-8 + self.latent_sigma(x))
+        return z, F.softplus(1e-8 + linear(self.latent_sigma, x))

@@ -22,6 +22,12 @@ window with zero taps, which compute the same function (the JAX package
 convolves each phase over its own window; only cuDNN's summation order can
 differ). One cuDNN call a layer instead of four.
 
+Both forms compute in the dtype of `x` and `w` (the decoder casts its f32
+weight to the compute dtype first, as the JAX `_UpConv` does). In bf16 the
+phase kernels are sums of bf16 taps, each addition rounded, in the JAX
+loop's order, and the bias is added to the rounded bf16 output, as the JAX
+module adds it after the interleave (`conv2d`; the same sums before it).
+
 The convolutions are cuDNN's (`F.conv2d`): the JAX module is XLA code, not
 a Pallas kernel. `upsample2x_conv_plain` is the unfused form (upsample,
 then the KxK conv), kept for the tests and the card's check.
@@ -35,6 +41,15 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, **kw) -> torch.Tensor:
+    """`F.conv2d` as a Flax `nn.Conv` computes it in x's dtype: in bf16 the
+    convolution's output is rounded to bf16 and the bias added to it after,
+    in bf16; in f32 and f64 the bias stays fused into cuDNN's call."""
+    if b is None or x.dtype != torch.bfloat16:
+        return F.conv2d(x, w, b, **kw)
+    return F.conv2d(x, w, None, **kw) + b.view(-1, 1, 1)
 
 
 def phase_offsets(p: int, K: int) -> List[int]:
@@ -74,7 +89,8 @@ def _tap_slots(K: int) -> np.ndarray:
 def phase_kernels(w: torch.Tensor) -> torch.Tensor:
     """(Cout, Cin, 2, 2, n, n): the four phases' kernels of OIHW `w` (K odd)
     on the common n x n window, each entry the left-to-right sum of its taps
-    in the JAX loop's order (a zero tap adds 0.0). Differentiable in `w`."""
+    in the JAX loop's order (a zero tap adds 0.0), in w's dtype, each
+    addition rounded to it. Differentiable in `w`."""
     cout, cin, K, _ = w.shape
     slots = torch.from_numpy(_tap_slots(K)).to(w.device)
     flat = torch.cat([w.reshape(cout, cin, K * K), w.new_zeros(cout, cin, 1)], dim=2)
@@ -104,9 +120,9 @@ def upsample2x_conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] 
     # output channel c * 4 + p * 2 + q is phase (p, q) of channel c: pixel_shuffle's order
     kern = phase_kernels(w).permute(0, 2, 3, 1, 4, 5).reshape(4 * cout, cin, 1 - 2 * lo, 1 - 2 * lo)
     bias = None if b is None else b.repeat_interleave(4)
-    return F.pixel_shuffle(F.conv2d(x, kern, bias, padding=-lo), 2)
+    return F.pixel_shuffle(conv2d(x, kern, bias, padding=-lo), 2)
 
 
 def upsample2x_conv_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The unfused form: nearest 2x upsample, then the KxK SAME conv."""
-    return F.conv2d(F.interpolate(x, scale_factor=2, mode="nearest"), w, b, padding="same")
+    return conv2d(F.interpolate(x, scale_factor=2, mode="nearest"), w, b, padding="same")

@@ -2,11 +2,12 @@
 augmentedautoencoder_tpu/training/trainer.py).
 
 One step: batch draw and composite on the device (data/pipeline.py), AAE
-forward with the bootstrapped loss, backward, and the optax-exact update
-(training/state.py). Its random numbers come from a generator on the
-device seeded from (seed, step), so a run is reproducible from its seed and
-resumes mid-stream; the initial parameters come from a seed disjoint from
-every step's, as the JAX package folds 2**31 - 1 into its key for them.
+forward with the bootstrapped loss in the model's precision, backward, and
+the optax-exact update of the f32 parameters (training/state.py). Its
+random numbers come from a generator on the device seeded from (seed,
+step), so a run is reproducible from its seed and resumes mid-stream; the
+initial parameters come from a seed disjoint from every step's, as the JAX
+package folds 2**31 - 1 into its key for them.
 
 The loop keeps the reference's save cadence, stops gently on
 `request_stop` (SIGINT), and reads its losses back late: the logged losses
@@ -131,7 +132,9 @@ class Trainer:
             return last
 
         try:
-            with f32_without_tf32():  # the step in full f32, as every parity arm of the port
+            # no TF32: an f32 step in full f32, and under PRECISION bfloat16
+            # the f32 heads, the loss and the optimizer
+            with f32_without_tf32():
                 self._loop(num_iter, save_hook, log_every, progress, pending, flush_pending)
         finally:
             # an exception in a step must not lose the metrics closest to it

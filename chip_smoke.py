@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA device, nvcc (CUDA toolkit) and this checkout; no network,
-no jax. Phases, each fatal on failure:
+no jax, no TensorFlow. Phases, each fatal on failure:
 
   1. device   -- require CUDA, print the card's name and power limit, turn
                  TF32 off for the f32 arms;
@@ -78,9 +78,11 @@ no jax. Phases, each fatal on failure:
                  TF32 at the template decoder's four 2x shapes at batch 64
                  (8->16 512->512, 16->32 512->256, 32->64 256->128, 64->128
                  128->3): the forward and the gradients of x, w and b within
-                 UPCONV_RTOL of the plain form computed in f64, each form's
-                 device ms, and one full-width step (ms, TFLOP, peak
-                 memory) under each decoder. Then
+                 UPCONV_RTOL of the plain form computed in f64, the bf16
+                 fused and plain forms each within UPCONV_BF16_RTOL of the
+                 same f64, each form's device ms in f32 and bf16, and one
+                 full-width f32 step (ms, TFLOP, peak memory) under each
+                 decoder. Then
                  training through cli.ae_train.main at the template's width
                  (128x128x3, filters [128, 256, 512, 512], latent 128, batch
                  64, L2 bootstrap 4, Adam 2e-4, the 8-op augmentation) on a
@@ -98,6 +100,14 @@ no jax. Phases, each fatal on failure:
                  restore_experiment. Prints ms/step (median of steps
                  50-200), its split into sample_batch / forward+backward /
                  optimizer, and the device busy share over 10 steps.
+                 7b: the same experiment with PRECISION bfloat16 (the same
+                 renders and backgrounds), 200 steps through
+                 cli.ae_train.main: the losses finite and falling, every
+                 parameter, statistic and optimizer slot f32 in the model and
+                 both checkpoints, one batch-8 bf16 step on the card and on
+                 the CPU each against the same step in f64
+                 (BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_L2); ms/step beside
+                 the f32 step's, TFLOP/s, peak memory, split, busy share.
   8. eval     -- the evaluation through cli.ae_eval.main at the template's
                  width (92,232-row codebook) on a BOP scene of 24 images at
                  720x540 (noise backgrounds, 3 instances each of a
@@ -130,6 +140,14 @@ no jax. Phases, each fatal on failure:
                  background_q95_420.jpg (baseline, 4:2:0, written by
                  cv2.imwrite) equal byte for byte to the stored cv2.imread
                  decode.
+  11. import  -- cli.ae_import_tf.main on the committed TF1 checkpoint
+                 tests/fixtures/torch_port/tf_ckpt (32x32x3, filters [8, 16],
+                 latent 8, a 50-row codebook) with `tensorflow` blocked; the
+                 test inputs' codes against TensorFlow's (1e-5), the 50 rows
+                 retrieving their own images through B3, and frames of those
+                 images served by AePoseEstimator (B3) and PoseServer f32
+                 top-1 (B1), each equal to the CPU port; the import's
+                 seconds.
 
 Each phase's seconds are printed after the last. The last lines are the kernels' JSON line, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Exits non-zero, without that line, on any
@@ -202,6 +220,24 @@ TRAIN_SERVE_TOL = 1e-5
 # f32 weight gradient of the plain form at 3 output channels is itself
 # 2.7e-2 off it (NVIDIA H100 80GB HBM3, 700 W; the fused form's 4e-7).
 UPCONV_RTOL = 1e-4
+# the same in bf16 (the forms of a PRECISION bfloat16 decoder, operands
+# rounded to bf16), fused and plain each against the plain form in f64 on
+# the same operands: two bf16 ulps of the largest |value|, as
+# tests/test_torch_bf16_train.py holds one op (each output is rounded to bf16
+# once; the fused and the plain forms round some elements apart).
+UPCONV_BF16_RTOL = 2.0 ** -7
+# phase 7's bf16 arm, one batch-8 step of the PRECISION bfloat16 model on
+# the card and on the CPU, each against the same step in f64 (the port's
+# modules in f64 throughout, models/reference.py) from the same parameters
+# and batch: the loss within BF16_STEP_LOSS_RTOL, each parameter's gradient
+# within BF16_STEP_GRAD_L2 in |d|_2 / |f64|_2. Fixed from the CPU measurement
+# of tests/test_torch_bf16_train.py (32x32x3, filters [8, 16], latent 8,
+# batch 4): the bf16 loss 1.3e-5 to 3.7e-4 from f64, the gradients' |d|_2 /
+# |f64|_2 at most 7.7e-2 (the decoder's dense, where pre-activations cross 0
+# in bf16 only), the others 3.9e-2 at most; the bounds are about 2.7x and
+# 2x those.
+BF16_STEP_LOSS_RTOL = 1e-3
+BF16_STEP_GRAD_L2 = 0.15
 # the template decoder's 2x steps: (input H = W, Cin, Cout), the last the
 # reconstruction head
 UPCONV_SHAPES = ((8, 512, 512), (16, 512, 256), (32, 256, 128), (64, 128, 3))
@@ -1477,15 +1513,17 @@ def plain_decoder():
 
 def upconv_phase(root, template_text, batch=64, reps=10, seed=11, steps=12):
     """The decoder's fused 2x convolution (`ops.fused_upconv.upsample2x_conv`)
-    against its plain form on the card, in f32 without TF32, at the
-    decoder's four 2x shapes of the template at batch `batch`: the forward
-    and the gradients of x, w and b within UPCONV_RTOL of each tensor's
-    largest |value| in the plain form computed in f64 (the plain form in f32
-    printed beside it), and each form's device ms (forward; forward +
-    backward).
-    Then one full-width training step (forward, backward, optimizer) under
-    each decoder: its ms (median of `steps`, synchronized), its FLOPs and
-    its peak allocated memory. Returns a summary dict."""
+    against its plain form on the card at the decoder's four 2x shapes of
+    the template at batch `batch`, on operands rounded to bf16 (so the f32
+    and the bf16 forms take the same values): in f32 without TF32, the
+    forward and the gradients of x, w and b within UPCONV_RTOL of each
+    tensor's largest |value| in the plain form computed in f64 (the plain
+    form in f32 printed beside it); in bf16, the fused and the plain form
+    each within UPCONV_BF16_RTOL of the same f64; each form's device ms
+    (forward; forward + backward) in both precisions.
+    Then one full-width f32 training step (forward, backward, optimizer)
+    under each decoder: its ms (median of `steps`, synchronized), its FLOPs
+    and its peak allocated memory. Returns a summary dict."""
     import numpy as np
     import torch
 
@@ -1496,39 +1534,54 @@ def upconv_phase(root, template_text, batch=64, reps=10, seed=11, steps=12):
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     summary = {"shapes": []}
+
+    def rel(a, p):
+        return {k: float((u.double() - v.double()).abs().max() / v.double().abs().max())
+                for k, u, v in zip(("y", "dx", "dw", "db"), a, p)}
+
     for hw, cin, cout in UPCONV_SHAPES:
-        x = torch.rand((batch, cin, hw, hw), generator=gen, device="cuda")
-        w = torch.randn((cout, cin, 5, 5), generator=gen, device="cuda") / (5 * cin ** 0.5)
-        b = torch.randn((cout,), generator=gen, device="cuda")
-        g = torch.randn((batch, cout, 2 * hw, 2 * hw), generator=gen, device="cuda")
+        x, w, b, g = (t.bfloat16().float() for t in (
+            torch.rand((batch, cin, hw, hw), generator=gen, device="cuda"),
+            torch.randn((cout, cin, 5, 5), generator=gen, device="cuda") / (5 * cin ** 0.5),
+            torch.randn((cout,), generator=gen, device="cuda"),
+            torch.randn((batch, cout, 2 * hw, 2 * hw), generator=gen, device="cuda")))
         got = {}
         for name, fn, dt in (("fused", fu.upsample2x_conv, torch.float32), ("plain", fu.upsample2x_conv_plain, torch.float32),
+                             ("fused_bf16", fu.upsample2x_conv, torch.bfloat16),
+                             ("plain_bf16", fu.upsample2x_conv_plain, torch.bfloat16),
                              ("f64", fu.upsample2x_conv_plain, torch.float64)):
             xs, ws, bs = (t.detach().to(dt, copy=True).requires_grad_() for t in (x, w, b))
             y = fn(xs, ws, bs)
             y.backward(g.to(dt))
             got[name] = (y.detach(), xs.grad, ws.grad, bs.grad)
-
-        def rel(a, p):
-            return {k: float((u.double() - v.double()).abs().max() / v.double().abs().max())
-                    for k, u, v in zip(("y", "dx", "dw", "db"), a, p)}
+            del xs, ws, bs, y
 
         errs, against = rel(got["fused"], got["f64"]), {"plain": rel(got["plain"], got["f64"]),
                                                         "fused_vs_plain": rel(got["fused"], got["plain"])}
-        xs, ws, bs = (t.clone().requires_grad_() for t in (x, w, b))
+        bf16 = {"fused": rel(got["fused_bf16"], got["f64"]), "plain": rel(got["plain_bf16"], got["f64"]),
+                "fused_vs_plain": rel(got["fused_bf16"], got["plain_bf16"])}
+        del got
 
-        def fwd(fn):
-            return lambda: (fn(x, w, b),)
+        def fwd(fn, dt):
+            xd, wd, bd = x.to(dt), w.to(dt), b.to(dt)
+            return lambda: (fn(xd, wd, bd),)
 
-        def fwd_bwd(fn):
+        def fwd_bwd(fn, dt):
+            xs, ws, bs = (t.to(dt).requires_grad_() for t in (x, w, b))
+            gd = g.to(dt)
+
             def run():
                 y = fn(xs, ws, bs)
-                y.backward(g)
+                y.backward(gd)
                 return (y.detach(),)
             return run
 
-        t = time_fns({"fused": fwd(fu.upsample2x_conv), "plain": fwd(fu.upsample2x_conv_plain),
-                      "fused_fb": fwd_bwd(fu.upsample2x_conv), "plain_fb": fwd_bwd(fu.upsample2x_conv_plain)}, reps)
+        fns = {}
+        for tag, dt in (("", torch.float32), ("_bf16", torch.bfloat16)):
+            for form, fn in (("fused", fu.upsample2x_conv), ("plain", fu.upsample2x_conv_plain)):
+                fns[form + tag] = fwd(fn, dt)
+                fns[form + "_fb" + tag] = fwd_bwd(fn, dt)
+        t = time_fns(fns, reps)
         shape = f"{hw}->{2 * hw}, {cin}->{cout}"
         log(f"  fused 2x conv at {shape} (batch {batch}), max |d| / max |f64| against the plain form in f64: "
             + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + "; the plain form in f32: "
@@ -1536,11 +1589,20 @@ def upconv_phase(root, template_text, batch=64, reps=10, seed=11, steps=12):
             + ", ".join(f"{k} {v:.2e}" for k, v in against["fused_vs_plain"].items())
             + f"; device ms forward {t['fused']:.3f} vs {t['plain']:.3f}, forward + backward "
               f"{t['fused_fb']:.3f} vs {t['plain_fb']:.3f}")
+        log(f"    in bf16: fused against f64 " + ", ".join(f"{k} {v:.2e}" for k, v in bf16["fused"].items())
+            + "; plain against f64 " + ", ".join(f"{k} {v:.2e}" for k, v in bf16["plain"].items())
+            + "; fused vs plain " + ", ".join(f"{k} {v:.2e}" for k, v in bf16["fused_vs_plain"].items())
+            + f"; device ms forward {t['fused_bf16']:.3f} vs {t['plain_bf16']:.3f}, forward + backward "
+              f"{t['fused_fb_bf16']:.3f} vs {t['plain_fb_bf16']:.3f}")
         if not max(errs.values()) <= UPCONV_RTOL:
             raise AssertionError(f"fused 2x conv at {shape} against the plain form in f64: {errs}, "
                                  f"want each <= {UPCONV_RTOL}")
-        summary["shapes"].append({"shape": shape, "errs": errs, **against, "ms": t})
-        del x, w, b, g, xs, ws, bs, got
+        worst_bf16 = max(max(bf16["fused"].values()), max(bf16["plain"].values()))
+        if not worst_bf16 <= UPCONV_BF16_RTOL:
+            raise AssertionError(f"bf16 2x conv at {shape} against f64: fused {bf16['fused']}, plain "
+                                 f"{bf16['plain']}, want each <= {UPCONV_BF16_RTOL}")
+        summary["shapes"].append({"shape": shape, "errs": errs, **against, "bf16": bf16, "ms": t})
+        del x, w, b, g, fns
 
     os.makedirs(root)
     cfg_path = os.path.join(root, "template.cfg")
@@ -1575,6 +1637,43 @@ def upconv_phase(root, template_text, batch=64, reps=10, seed=11, steps=12):
     return summary
 
 
+def step_split(tr, steps):
+    """The trainer's step split into sample_batch / forward_backward /
+    optimizer by the port's StageTimer, each stage closed by a synchronize:
+    mean ms of `steps` steps, printed and returned."""
+    import torch
+
+    from augmentedautoencoder_torch.training.profiler import StageTimer
+
+    timer = StageTimer()
+    tr.model.train()
+    for i in range(steps):
+        gen = tr.generator_for(10 ** 7 + i)
+        torch.cuda.synchronize()
+        with timer.stage("sample_batch"):
+            xb, yb = tr.dataset.sample_batch(gen, tr.cfg.batch_size)
+            torch.cuda.synchronize()
+        with timer.stage("forward_backward"):
+            out = tr.model(xb, yb, train=True, generator=gen)
+            tr.optimizer.zero_grad()
+            out.total_loss.backward()
+            torch.cuda.synchronize()
+        with timer.stage("optimizer"):
+            tr.optimizer.step()
+            torch.cuda.synchronize()
+    split = {k: 1e3 * v["mean_s"] for k, v in timer.summary().items()}
+    log(f"  step split over {steps} steps (ms, mean, synchronized): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + f"; sum {sum(split.values()):.3f}")
+    return split
+
+
+def step_profile(tr, steps, trace_dir):
+    """`steps` of the trainer's steps under the port's training.profiler.trace:
+    device_profile's dict (or None)."""
+    return device_profile(lambda: [tr.step_fn(tr.generator_for(10 ** 8 + i)) for i in range(steps)],
+                          n_frames=steps, top=8, trace_dir=trace_dir)
+
+
 def train_phase(root, device, template_text, n_train=4096, n_bg=1000, num_iter=200, save_interval=100,
                 seed=7, radius=40.0, parity_batch=8, split_steps=10, profile_steps=10, timed_from=50):
     """Training through its entry point, cli.ae_train.main, at the template's
@@ -1606,7 +1705,6 @@ def train_phase(root, device, template_text, n_train=4096, n_bg=1000, num_iter=2
     from augmentedautoencoder_torch.ops import nn_query as nq
     from augmentedautoencoder_torch.renderer.procedural import make_textured_asymmetric, save_ply
     from augmentedautoencoder_torch.training import CheckpointManager, Trainer, make_optimizer
-    from augmentedautoencoder_torch.training.profiler import StageTimer
     from augmentedautoencoder_torch.utils.png import write_png
 
     cuda = str(device).startswith("cuda")
@@ -1815,36 +1913,151 @@ def train_phase(root, device, template_text, n_train=4096, n_bg=1000, num_iter=2
         return summary
 
     # ---- the step split into its stages (the port's StageTimer), each closed by a synchronize
-    timer = StageTimer()
     tr = resumed
-    tr.model.train()
-    for i in range(split_steps):
-        gen = tr.generator_for(10 ** 7 + i)
-        torch.cuda.synchronize()
-        with timer.stage("sample_batch"):
-            xb, yb = tr.dataset.sample_batch(gen, cfg.batch_size)
-            torch.cuda.synchronize()
-        with timer.stage("forward_backward"):
-            out = tr.model(xb, yb, train=True, generator=gen)
-            tr.optimizer.zero_grad()
-            out.total_loss.backward()
-            torch.cuda.synchronize()
-        with timer.stage("optimizer"):
-            tr.optimizer.step()
-            torch.cuda.synchronize()
-    split = {k: 1e3 * v["mean_s"] for k, v in timer.summary().items()}
-    summary["split_ms"] = split
-    log(f"  step split over {split_steps} steps (ms, mean, synchronized): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + f"; sum {sum(split.values()):.3f}")
+    summary["split_ms"] = step_split(tr, split_steps)
     # the busy share under the port's training.profiler.trace
-    prof = device_profile(lambda: [tr.step_fn(tr.generator_for(10 ** 8 + i)) for i in range(profile_steps)],
-                          n_frames=profile_steps, top=8, trace_dir=os.path.join(root, "trace"))
+    prof = step_profile(tr, profile_steps, os.path.join(root, "trace"))
     summary["profile"] = prof
     if prof is None:
         log("  torch.profiler saw no device time (busy share not measured)")
     else:
         top = ", ".join(f"{k} {v:.3f}" for k, v in prof["top_ms_per_frame"])
         log(f"  {profile_steps} steps under the profiler: device busy {prof['device_ms']:.1f} of "
+            f"{prof['wall_ms']:.1f} ms ({100 * prof['device_ms'] / prof['wall_ms']:.1f}% busy); "
+            f"top (ms/step): {top}")
+    return summary
+
+
+def _grads_of(model, x, y):
+    """(total loss, {parameter: gradient as f64 on the CPU}) of one training
+    forward and backward of `model` on (x, y)."""
+    model.train()
+    out = model(x, y, train=True)
+    model.zero_grad()
+    out.total_loss.backward()
+    return out.total_loss.item(), {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()}
+
+
+def bf16_train_phase(root, device, f32_summary, num_iter=200, save_interval=100, seed=7, parity_batch=8,
+                     split_steps=10, profile_steps=10, timed_from=50):
+    """Phase 7's bf16 arm: the f32 phase's experiment again with PRECISION
+    bfloat16 (the same workspace, renders and backgrounds; f32 parameters,
+    bf16 convolutions and denses, f32 heads, loss and optimizer), trained
+    through cli.ae_train.main for `num_iter` steps. Checks the logged losses
+    finite and falling, the model's and every checkpoint's tensors f32,
+    and one step of batch `parity_batch` on `device` and on the CPU from
+    the trained state, each against the same step in f64 on `device`
+    (BF16_STEP_LOSS_RTOL, BF16_STEP_GRAD_L2). Prints ms/step (median of
+    steps `timed_from`-`num_iter`, host clock, losses read back at the
+    deferred flushes only) beside the f32 step's, the step's FLOPs, TFLOP/s,
+    peak memory and, on the card, its split and busy share."""
+    import numpy as np
+    import torch
+
+    from augmentedautoencoder_torch import factory
+    from augmentedautoencoder_torch import workspace as ws
+    from augmentedautoencoder_torch.cli import ae_train
+    from augmentedautoencoder_torch.models.reference import float64_loss, float64_model
+    from augmentedautoencoder_torch.ops import icp_nn
+    from augmentedautoencoder_torch.ops import multi_codebook as mc
+    from augmentedautoencoder_torch.ops import nn_query as nq
+    from augmentedautoencoder_torch.training import CheckpointManager
+
+    cuda = str(device).startswith("cuda")
+    ws_path = ws.get_workspace_path()
+    with open(ws.get_config_file_path(ws_path, "train")) as fh:
+        text = fh.read()
+    with open(ws.get_config_file_path(ws_path, "train_bf16"), "w") as fh:
+        fh.write(text.replace("[Training]\n", "[Training]\nPRECISION: bfloat16\n", 1))
+    cfg, paths = factory.load_experiment_config("train_bf16")
+    if cfg.precision != "bfloat16" or (cfg.num_iter, cfg.save_interval) != (num_iter, save_interval):
+        raise AssertionError(f"bf16 cfg: {cfg.precision}, {cfg.num_iter} steps, saves every {cfg.save_interval}")
+
+    # ---- the main path: counts from 0, read right after
+    wrappers = (mc.grouped_codebook_top1, mc.grouped_codebook_topk, nq.cosine_top1_cuda, icp_nn.batched_nn_cuda)
+    for fn in wrappers:
+        fn.launches = 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = ae_train.main(["train_bf16", "--seed", str(seed)], device=device)
+    train_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    ends = np.asarray(trainer.step_end_times)
+    step_ms = float(np.median(np.diff(ends[timed_from - 1:]))) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+    flops = train_step_flops(cfg)
+    f32_ms = f32_summary["step_ms"]
+    log(f"  main-path launches: {launches}")
+    log(f"  ae_train in bf16: {trainer.step} steps in {train_s:.1f} s (load, {trainer.step} steps, 2 saves); "
+        f"{step_ms:.3f} ms/step against the f32 step's {f32_ms:.3f} ms/step ({f32_ms / step_ms:.2f}x; each the "
+        f"median of steps {timed_from}-{num_iter}, host clock); {flops / 1e12:.3f} TFLOP a step, "
+        f"{flops / step_ms / 1e9:.1f} TFLOP/s = {100 * flops / step_ms / 1e-3 / BF16_FLOPS:.1f}% of the dense bf16 "
+        f"peak ({BF16_FLOPS / 1e12:.0f} TFLOP/s, 700 W); peak allocated {peak:.2f} GiB")
+
+    with open(os.path.join(paths["checkpoint_dir"], "metrics.jsonl")) as fh:
+        total = np.array([json.loads(line)["total_loss"] for line in fh])
+    if not (len(total) >= 10 and np.isfinite(total).all()):
+        raise AssertionError(f"bf16 logged losses: {total.tolist()}")
+    first, last = float(total[:5].mean()), float(total[-5:].mean())
+    if not last < first:
+        raise AssertionError(f"the bf16 loss did not fall: first 5 logged {total[:5].tolist()}, last 5 "
+                             f"{total[-5:].tolist()}")
+    mgr = CheckpointManager(paths["checkpoint_dir"])
+    f32_only = all(t.dtype == torch.float32 for t in trainer.model.state_dict().values() if t.is_floating_point())
+    for step in mgr.all_steps():
+        payload = mgr.restore(step)
+        tensors = [*payload["state_dict"].values(), *payload["decoder"].values(),
+                   *(t for d in payload["opt_state"]["slots"].values() for t in d.values())]
+        f32_only &= all(t.dtype == torch.float32 for t in tensors if t.is_floating_point())
+    if mgr.all_steps() != [save_interval, num_iter] or not f32_only:
+        raise AssertionError(f"bf16 checkpoints {mgr.all_steps()}, every tensor f32: {f32_only}")
+    log(f"  losses: {len(total)} logged, all finite; mean of the first 5 {first:.6f}, of the last 5 {last:.6f}; "
+        f"parameters, statistics and optimizer slots f32 in the model and in chkpt-{save_interval}, "
+        f"chkpt-{num_iter}")
+
+    # ---- one step of batch `parity_batch` on the device and on the CPU, each against f64
+    state = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+    x, y = (t.cpu() for t in trainer.dataset.sample_batch(trainer.generator_for(10 ** 6), parity_batch))
+
+    def model_on(dev):
+        model = factory.build_train_model(cfg, dev)
+        model.load_state_dict(state)
+        return model
+
+    with float64_loss():
+        loss64, g64 = _grads_of(float64_model(model_on(device)), x.double().to(device), y.double().to(device))
+    parity = {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        loss, g = _grads_of(model_on(dev), x.to(dev), y.to(dev))
+        l2 = {k: float((g[k] - g64[k]).norm() / g64[k].norm().clamp_min(1e-300)) for k in g64}
+        mx = {k: float((g[k] - g64[k]).abs().max() / g64[k].abs().max().clamp_min(1e-300)) for k in g64}
+        parity[dev] = {"loss_rel": abs(loss - loss64) / abs(loss64), "grad_l2": l2, "grad_max": mx,
+                       "s": time.perf_counter() - t0}
+        worst = sorted(l2.items(), key=lambda kv: -kv[1])
+        log(f"  one bf16 step of batch {parity_batch} on {dev} against f64 on {device}, the trained state: loss "
+            f"{loss:.7f} vs {loss64:.7f} (rel {parity[dev]['loss_rel']:.2e}); |dgrad|_2 / |grad|_2 per tensor: "
+            + ", ".join(f"{k} {v:.2e}" for k, v in worst) + "; max |dgrad| / max |grad| at most "
+            + f"{max(mx.values()):.2e} ({max(mx, key=mx.get)}); {parity[dev]['s']:.1f} s")
+        if not parity[dev]["loss_rel"] <= BF16_STEP_LOSS_RTOL or not worst[0][1] <= BF16_STEP_GRAD_L2:
+            raise AssertionError(f"bf16 step on {dev} against f64: loss rel {parity[dev]['loss_rel']}, "
+                                 f"gradient {worst[0]}")
+
+    summary = {"launches": launches, "step_ms": step_ms, "f32_step_ms": f32_ms, "step_flops": flops,
+               "peak_gib": peak, "loss_first5": first, "loss_last5": last,
+               "parity": {d: {k: v for k, v in p.items() if k != "grad_max"} for d, p in parity.items()}}
+    if not cuda:
+        return summary
+    summary["split_ms"] = step_split(trainer, split_steps)
+    log(f"  the f32 step's split in this run: " + ", ".join(f"{k} {v:.3f}" for k, v in f32_summary["split_ms"].items()))
+    prof = step_profile(trainer, profile_steps, os.path.join(root, "trace_bf16"))
+    summary["profile"] = prof
+    if prof is None:
+        log("  torch.profiler saw no device time (busy share not measured)")
+    else:
+        top = ", ".join(f"{k} {v:.3f}" for k, v in prof["top_ms_per_frame"])
+        log(f"  {profile_steps} bf16 steps under the profiler: device busy {prof['device_ms']:.1f} of "
             f"{prof['wall_ms']:.1f} ms ({100 * prof['device_ms'] / prof['wall_ms']:.1f}% busy); "
             f"top (ms/step): {top}")
     return summary
@@ -2370,6 +2583,12 @@ def dsprites_phase(root, device, template_text, hw=64, num_iter=100, save_interv
 
 # ------------------------------------------------------------------ phase 10
 JPEG_FIXTURE = os.path.join("tests", "fixtures", "torch_port", "background_q95_420.jpg")
+TF_FIXTURE = os.path.join("tests", "fixtures", "torch_port", "tf_ckpt")
+# the imported model's codes against TensorFlow's (f32, TF32 off; the
+# convolutions summed in other orders), and the card's poses against the
+# CPU port's (phase 4's bound)
+IMPORT_CODE_TOL = 1e-5
+IMPORT_POSE_TOL = 1e-4
 
 
 def jpeg_phase():
@@ -2396,6 +2615,114 @@ def jpeg_phase():
 
 
 # ------------------------------------------------------------------ main
+# ------------------------------------------------------------------ phase 11
+def import_phase(root, device, frames_of=16):
+    """ae_import_tf on the card's machine: the committed TF1 checkpoint
+    fixture (tests/fixtures/torch_port/tf_ckpt: the reference graph at
+    32x32x3, filters [8, 16], latent 8, a 50-row codebook of TensorFlow's
+    unit codes of 50 seeded images) imported through cli.ae_import_tf.main
+    with `tensorflow` blocked from import. Checks the codes of the 4 test
+    inputs on `device` against TensorFlow's (IMPORT_CODE_TOL); the 50
+    codebook images retrieving their own rows through Codebook.
+    nearest_rotation (B3); and frames of them (`frames_of` 32x32 boxes a
+    128x128 frame, PAD_FACTOR 1: each crop is its image) served by
+    AePoseEstimator (B3) and by PoseServer f32 top-1 (B1), each equal to
+    the CPU port's plain versions (IMPORT_POSE_TOL). Returns a summary
+    dict with the path's launches and the import's seconds."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from augmentedautoencoder_torch import factory
+    from augmentedautoencoder_torch import workspace as ws
+    from augmentedautoencoder_torch.cli import ae_import_tf
+    from augmentedautoencoder_torch.codebook import f32_without_tf32
+    from augmentedautoencoder_torch.ops import icp_nn
+    from augmentedautoencoder_torch.ops import multi_codebook as mc
+    from augmentedautoencoder_torch.ops import nn_query as nq
+    from augmentedautoencoder_torch.pose import AePoseEstimator, BoundingBox
+    from augmentedautoencoder_torch.serving import PoseServer
+
+    fixture = os.path.join(REPO, TF_FIXTURE)
+    spec = importlib.util.spec_from_file_location("make_tf_fixture", os.path.join(os.path.dirname(fixture),
+                                                                                  "make_tf_fixture.py"))
+    fx = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fx)
+    has_tf = importlib.util.find_spec("tensorflow") is not None
+    log(f"  tensorflow importable on this machine: {'yes' if has_tf else 'no'}; blocked for this phase")
+    ws_path = os.path.join(root, "workspace")
+    os.environ["AE_WORKSPACE_PATH"] = ws_path
+    ws.init_workspace(ws_path)
+    imgs = fx.images(fx.N_TEST + fx.N_ROWS)
+    test_cfg = os.path.join(root, "test.cfg")
+    with open(test_cfg, "w") as fh:
+        fh.write("[auto_pose]\ncamPose = False\nupright = False\ntopk = 1\ncolor_format = bgr\n"
+                 "color_data_type = np.float32\ndepth_data_type = np.float32\n"
+                 "class_2_encoder = {'tf_cls': 'tf_imported'}\n")
+    frames = []
+    for start in range(0, fx.N_ROWS, frames_of):
+        rows = list(range(start, min(start + frames_of, fx.N_ROWS)))
+        img, boxes = np.zeros((128, 128, 3), np.uint8), []
+        for k, r in enumerate(rows):
+            x0, y0 = 32 * (k % 4), 32 * (k // 4)
+            img[y0:y0 + 32, x0:x0 + 32] = imgs[fx.N_TEST + r]
+            boxes.append(BoundingBox(x0 / 128, y0 / 128, (x0 + 32) / 128, (y0 + 32) / 128, {"tf_cls": 1.0}))
+        frames.append({"bboxes": boxes, "color_img": img,
+                       "camK": np.array([[100.0, 0, 64], [0, 100.0, 64], [0, 0, 1]])})
+
+    # ---- the main path: counts from 0, read right after
+    wrappers = (mc.grouped_codebook_top1, mc.grouped_codebook_topk, nq.cosine_top1_cuda, icp_nn.batched_nn_cuda)
+    for fn in wrappers:
+        fn.launches = 0
+    blocked, sys.modules["tensorflow"] = sys.modules.get("tensorflow"), None
+    try:
+        t0 = time.perf_counter()
+        ae_import_tf.main([os.path.join(fixture, f"chkpt-{fx.STEP}"), "tf_imported", "--cfg",
+                           os.path.join(fixture, "train.cfg"), "--scope", fx.SCOPE])
+        import_s = time.perf_counter() - t0
+    finally:
+        if blocked is None:
+            del sys.modules["tensorflow"]
+        else:
+            sys.modules["tensorflow"] = blocked
+    codebook = factory.build_codebook_from_name("tf_imported", device=device)
+    with f32_without_tf32():
+        z = codebook.test_embedding(imgs[:fx.N_TEST], normalized=False)
+        rows = np.asarray(codebook.nearest_rotation(imgs[fx.N_TEST:], return_idcs=True)).ravel()
+        est = AePoseEstimator(test_cfg, device=device)
+        server = PoseServer(test_cfg, max_dets_per_class=frames_of, precision="float32", device=device)
+        served = {"estimator": [est.process(**f) for f in frames], "server": [server.process(**f) for f in frames]}
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    log(f"  main-path launches: {launches}")
+    code_err = float(np.abs(z - np.load(os.path.join(fixture, "codes.npy"))).max())
+    self_rows = int((rows == np.arange(fx.N_ROWS)).sum())
+
+    # the same on the CPU: the plain versions
+    cpu_rows = np.asarray(factory.build_codebook_from_name("tf_imported", device="cpu").nearest_rotation(
+        imgs[fx.N_TEST:], return_idcs=True)).ravel()
+    cpu = [AePoseEstimator(test_cfg, device="cpu").process(**f) for f in frames]
+    pose_errs = {}
+    for name, got in served.items():
+        pose_errs[name] = max(float(np.abs(g.trafo - w.trafo).max()) for fg, fw in zip(got, cpu) for g, w in zip(fg, fw))
+        if [len(f) for f in got] != [len(f) for f in cpu]:
+            raise AssertionError(f"import: {name} served {[len(f) for f in got]} poses, the CPU {[len(f) for f in cpu]}")
+    n_det = sum(len(f["bboxes"]) for f in frames)
+    log(f"  imported the {fx.N_ROWS}-row fixture (32x32x3, filters {fx.FILTERS}, latent {fx.LATENT}) in "
+        f"{import_s:.2f} s; codes of the {fx.N_TEST} test inputs on {device} against TensorFlow's: max |dz| "
+        f"{code_err:.2e}; {self_rows} of {fx.N_ROWS} rows retrieve themselves through B3 (the CPU's plain "
+        f"version: {int((cpu_rows == np.arange(fx.N_ROWS)).sum())}); {n_det} detections in {len(frames)} frames, "
+        f"max |dtrafo| against the CPU port: estimator (B3) {pose_errs['estimator']:.2e}, PoseServer f32 top-1 "
+        f"(B1) {pose_errs['server']:.2e}")
+    if not code_err <= IMPORT_CODE_TOL or self_rows != fx.N_ROWS or not np.array_equal(rows, cpu_rows):
+        raise AssertionError(f"import: codes {code_err}, rows {rows.tolist()}, CPU rows {cpu_rows.tolist()}")
+    if not max(pose_errs.values()) <= IMPORT_POSE_TOL:
+        raise AssertionError(f"import: served poses against the CPU port {pose_errs}")
+    if str(device).startswith("cuda") and not (launches["cosine_top1_cuda"] and launches["grouped_codebook_top1"]):
+        raise AssertionError(f"import: B3 and B1 not both launched: {launches}")
+    return {"launches": launches, "import_s": import_s, "code_err": code_err, "pose_errs": pose_errs}
+
+
 def main() -> int:
     start = time.perf_counter()
     seconds = {}
@@ -2435,12 +2762,17 @@ def main() -> int:
         upconv_phase(os.path.join(root, "upconv"), template)
         train = train_phase(os.path.join(root, "train"), "cuda", template)
         seconds["7 train"] = time.perf_counter() - t0
+        log(f"phase 7b: training in PRECISION bfloat16 at full width ({time.perf_counter() - start:.1f} s in)")
+        train_bf16 = phase("7b train bf16", bf16_train_phase, os.path.join(root, "train"), "cuda", train)
         log(f"phase 8: evaluation at full width ({time.perf_counter() - start:.1f} s in)")
         evaluation = phase("8 eval", eval_phase, os.path.join(root, "eval"), "cuda", template)
         log(f"phase 9: dsprites at the template's width, 64x64x1 ({time.perf_counter() - start:.1f} s in)")
         sprites = phase("9 dsprites", dsprites_phase, os.path.join(root, "dsprites"), "cuda", template)
     log(f"phase 10: jpeg ({time.perf_counter() - start:.1f} s in)")
     phase("10 jpeg", jpeg_phase)
+    with tempfile.TemporaryDirectory(prefix="aae_chip_smoke_import_") as root:
+        log(f"phase 11: ae_import_tf of the committed TF1 checkpoint, served ({time.perf_counter() - start:.1f} s in)")
+        imported = phase("11 import", import_phase, root, "cuda")
     log(f"all phases passed in {time.perf_counter() - start:.1f} s; seconds per phase: "
         + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
 
@@ -2465,8 +2797,10 @@ def main() -> int:
                                  "depth_serving": depth["launches"][name],
                                  "embed": embed["launches"][name],
                                  "train": train["launches"][name],
+                                 "train_bf16": train_bf16["launches"][name],
                                  "eval": evaluation["launches"][name],
-                                 "dsprites": sprites["launches"][name]},
+                                 "dsprites": sprites["launches"][name],
+                                 "import": imported["launches"][name]},
             "timed": {"ms": "device, whole function from the user's inputs, cold L2",
                       "launch_ms": "device, kernel binding on operands in its input form, cold L2",
                       "call_ms": "host clock per call of the whole function, back to back, warm L2, "

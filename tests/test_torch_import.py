@@ -1,6 +1,6 @@
-"""The port imports and serves with jax, flax, orbax, OpenCV and the JAX
-package itself blocked; no module of the port imports jax or the JAX
-package; its entry points refuse to fall back to the CPU; and its re-homed
+"""The port imports and serves with jax, flax, orbax, OpenCV, TensorFlow and
+the JAX package itself blocked; no module of the port imports jax,
+TensorFlow or the JAX package; its entry points refuse to fall back to the CPU; and its re-homed
 pose interfaces match the JAX package's field for field."""
 
 import ast
@@ -21,7 +21,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SCRIPT = textwrap.dedent(
     """
     import os, pkgutil, sys, importlib
-    for m in ("jax", "jaxlib", "flax", "orbax", "orbax.checkpoint", "optax", "cv2",
+    for m in ("jax", "jaxlib", "flax", "orbax", "orbax.checkpoint", "optax", "cv2", "tensorflow",
               "augmentedautoencoder_tpu"):
         sys.modules[m] = None
     import numpy as np
@@ -31,7 +31,8 @@ _SCRIPT = textwrap.dedent(
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
     for want in ("evaluation.evaluator", "evaluation.pose_errors", "evaluation.scene_loader",
                  "evaluation.plots", "cli.ae_eval", "cli.compute_eval_errors", "cli.compute_bop_results",
-                 "cli.ae_init_workspace", "config.eval_config"):
+                 "cli.ae_init_workspace", "config.eval_config", "cli.ae_import_tf", "training.tf_bundle",
+                 "training.tf_interop", "models.reference"):
         assert pkg.__name__ + "." + want in names, want
     for name in names:
         importlib.import_module(name)
@@ -63,7 +64,7 @@ _SCRIPT = textwrap.dedent(
                         max_dets_per_class=2, device="cpu")
     out = server.process(**make_frames(["c"], 1, 3, seed=0)[0])
     assert len(out) == 3 and all(np.isfinite(p.trafo).all() for p in out)
-    blocked = [m for m in ("jax", "flax", "orbax", "cv2", "augmentedautoencoder_tpu")
+    blocked = [m for m in ("jax", "flax", "orbax", "cv2", "tensorflow", "augmentedautoencoder_tpu")
                if sys.modules.get(m) is not None]
     assert not blocked, blocked
     print("OK", len(names))
@@ -118,6 +119,7 @@ def _imported_modules(path):
 
 @pytest.mark.parametrize("root", ["augmentedautoencoder_torch", "chip_smoke.py"])
 def test_no_port_module_imports_jax_or_the_jax_package(root):
+    """Nor TensorFlow: the card's machine has none."""
     top = os.path.join(REPO, root)
     files = [top] if top.endswith(".py") else [
         os.path.join(d, f) for d, _, fs in os.walk(top) for f in fs if f.endswith(".py")
@@ -127,7 +129,7 @@ def test_no_port_module_imports_jax_or_the_jax_package(root):
         (os.path.relpath(f, REPO), name)
         for f in files
         for name in _imported_modules(f)
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "augmentedautoencoder_tpu")
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "tensorflow", "augmentedautoencoder_tpu")
     ]
     assert not bad, bad
 

@@ -88,8 +88,8 @@ def test_rgb_bit_equal_to_jax(scenes):
 
 def test_configs_and_recipe_match_jax(scripts):
     port, jax_script = scripts
-    # the port trains in float32 only: the JAX script's PRECISION slot, filled
-    assert port.TRAIN_CFG == jax_script.TRAIN_CFG.replace("PRECISION: {precision}", "PRECISION: float32")
+    # PRECISION is a slot in both, filled from --precision
+    assert port.TRAIN_CFG == jax_script.TRAIN_CFG
     # COMPUTE_PLOTS follows whether matplotlib imports, where the JAX script says True
     assert port.EVAL_CFG == jax_script.EVAL_CFG.replace("COMPUTE_PLOTS: True", "COMPUTE_PLOTS: {compute_plots}")
     assert (port.W, port.H, port.RADIUS) == (jax_script.W, jax_script.H, jax_script.RADIUS)
@@ -106,6 +106,26 @@ def test_bounds_are_two_standard_errors_below_the_jax_recalls(scripts):
     assert all(port.within_bounds(summary).values())
     summary["median_te_mm"] = 5.6
     assert not port.within_bounds(summary)["median_te_mm"]
+
+
+def test_bf16_bounds_are_two_standard_errors_below_the_port_f32_arm(scripts):
+    """The bf16 arm's bounds: each recall two standard errors below the
+    port's own f32 arm (its committed result, to 4 places), te and the
+    medians as the f32 arm's bounds."""
+    port, _ = scripts
+    with open(REPO / "scripts" / "quality_vsd_torch_asym_clutter_inst3_icp_frame_agg8.json") as fh:
+        f32 = json.load(fh)
+    assert f32["precision"] == "float32" and f32["seed"] == port.SEED
+    for key, value in port.PORT_F32.items():
+        assert value == pytest.approx(f32[key], abs=5e-5), key
+    for key in ("vsd_recall@0.3", "re_recall@15deg", "add_recall@0.1d"):
+        p = port.PORT_F32[key]
+        op, bound = port.BF16_BOUNDS[key]
+        assert op == ">=" and bound == pytest.approx(p - 2 * np.sqrt(2 * p * (1 - p) / 150), abs=1e-3)
+        assert bound >= port.BOUNDS[key][1]  # at least as strict as the f32 arm's bound against JAX
+    for key in ("te_recall@100mm", "median_re_deg", "median_te_mm"):
+        assert port.BF16_BOUNDS[key] == port.BOUNDS[key]
+    assert all(port.within_bounds(dict(port.PORT_F32), port.BF16_BOUNDS).values())
 
 
 def test_backgrounds_are_seeded_420_jpegs(scripts, tmp_path):
