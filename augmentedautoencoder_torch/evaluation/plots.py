@@ -1,6 +1,8 @@
 """Evaluation plots (reference auto_pose/eval/eval_plots.py, matplotlib;
-copy of augmentedautoencoder_tpu/evaluation/plots.py without
-`plot_scene_with_3d_boxes`, whose box drawing is OpenCV's).
+copy of augmentedautoencoder_tpu/evaluation/plots.py;
+`plot_scene_with_3d_boxes` draws through `visualization/box3d` and writes
+its PNG with `utils/png.write_png`, so it needs neither OpenCV nor
+matplotlib).
 
 Rebuilt set: per-metric error histograms + cumulative error curves, codebook
 embedding PCA scatter, viewsphere scatter, recall bars, occlusion-binned
@@ -322,6 +324,34 @@ def plot_nearest_neighbors(rows: Sequence[Sequence[np.ndarray]], out_dir: str) -
     path = os.path.join(out_dir, "nearest_neighbors.png")
     _save_float_image(all_nns, path)
     return path
+
+
+def plot_scene_with_3d_boxes(
+    scene_img: np.ndarray,
+    K: np.ndarray,
+    vert_min: Sequence[float],
+    vert_max: Sequence[float],
+    est_poses: Sequence,
+    out_path: str,
+    gt_poses: Sequence = (),
+) -> str:
+    """Scene with projected 3D bounding boxes of the estimates (green) and
+    optionally the GT poses (blue) -- reference eval_plots.py:92-207. The
+    file holds the RGB pixels of the JAX function's `plt.imsave` (the BGR
+    scene written as an RGB PNG). Poses are (R (3,3), t (3)) pairs."""
+    from ..utils.png import write_png
+    from ..visualization.box3d import draw_box3d
+
+    img = np.asarray(scene_img)
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, axis=2)
+    img = np.ascontiguousarray(img.astype(np.uint8))
+    for R, t in gt_poses:
+        img = draw_box3d(img, vert_min, vert_max, K, R, t, color=(255, 80, 0))
+    for R, t in est_poses:
+        img = draw_box3d(img, vert_min, vert_max, K, R, t, color=(0, 255, 0))
+    write_png(out_path, img)
+    return out_path
 
 
 def _save_float_image(img: np.ndarray, path: str) -> None:

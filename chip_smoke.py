@@ -148,6 +148,27 @@ no jax, no TensorFlow. Phases, each fatal on failure:
                  images served by AePoseEstimator (B3) and PoseServer f32
                  top-1 (B1), each equal to the CPU port; the import's
                  seconds.
+  12. demo    -- the demos and the detector-data generators, with no
+                 OpenCV, on phase 6's embedded experiment (92,232 rows,
+                 latent 128; embedded again if its workspace is gone):
+                 cli.aae_image on 16 crops of re-rendered codebook views
+                 ((128, 256) estimates, own rows or duplicates within
+                 MARGIN, panes the renders of their R, the first 4 crops'
+                 rows on the CPU); cli.aae_webcam through the camera and
+                 window seams (720x540 renders, 'q' after 8 frames: two
+                 panes a frame, the camera released, rows = the CPU
+                 port's); cli.detector_webcam_pose with
+                 ForegroundContourDetector and a .pbtxt label map on 8
+                 frames of 1-3 rendered objects on black (boxes = the
+                 detector's, poses within DEMO_POSE_TOL of the CPU port,
+                 overlays = the CPU's outside the text boxes; host ms a
+                 frame split into detect / estimate / draw; the detector
+                 alone on those frames, split into its steps);
+                 PoseVisualizer and plot_scene_with_3d_boxes on phase 8's
+                 scene with the card's and the CPU's estimates (equal);
+                 cli.generate_syn_det_train and cli.generate_sixd_train, 4
+                 scenes each at 720x540 (PNG and VOC XML, boxes inside the
+                 frame, seconds a scene); B3's launches on this path.
 
 Each phase's seconds are printed after the last. The last lines are the kernels' JSON line, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Exits non-zero, without that line, on any
@@ -1317,6 +1338,33 @@ def depth_phase(root, device, template_text, n_frames=8, grid=(4, 6), image_hw=(
 
 
 # ------------------------------------------------------------------ phase 6
+def embed_experiment(root, template_text, radius=40.0, seed=6):
+    """Phase 6's experiment, not yet embedded: a workspace under `root`
+    (AE_WORKSPACE_PATH set to it) whose experiment "embed" renders a
+    procedural 5,120-face mesh of `radius` mm with seeded f32 weights at
+    chkpt-0. Returns (workspace path, cfg, paths)."""
+    import torch
+
+    from augmentedautoencoder_torch import factory
+    from augmentedautoencoder_torch import workspace as ws
+    from augmentedautoencoder_torch.models import AAE
+    from augmentedautoencoder_torch.renderer.procedural import make_textured_asymmetric, save_ply
+    from augmentedautoencoder_torch.training.checkpoint import CheckpointManager
+
+    ws_path = os.path.join(root, "workspace")
+    os.environ["AE_WORKSPACE_PATH"] = ws_path
+    ws.init_workspace(ws_path)
+    ply = os.path.join(root, "embed_obj.ply")
+    save_ply(make_textured_asymmetric(subdivisions=4, radius=radius), ply)
+    with open(ws.get_config_file_path(ws_path, "embed"), "w") as fh:
+        fh.write("\n".join(f"MODEL_PATH: {ply}" if line.startswith("MODEL_PATH") else line
+                           for line in template_text.splitlines()) + "\n")
+    cfg, paths = factory.load_experiment_config("embed")
+    torch.manual_seed(seed)
+    CheckpointManager(paths["checkpoint_dir"]).save(0, AAE.from_config(cfg, precision="float32").state_dict())
+    return ws_path, cfg, paths
+
+
 def embed_phase(root, device, template_text, radius=40.0, n_retrieve=64, seed=6, batch_size=None,
                 profile_views=1024):
     """The codebook build through its entry point, cli.ae_embed.main, at the
@@ -1335,28 +1383,14 @@ def embed_phase(root, device, template_text, radius=40.0, n_retrieve=64, seed=6,
     import torch
 
     from augmentedautoencoder_torch import factory
-    from augmentedautoencoder_torch import workspace as ws
     from augmentedautoencoder_torch.cli import ae_embed
     from augmentedautoencoder_torch.codebook import Codebook
-    from augmentedautoencoder_torch.models import AAE
     from augmentedautoencoder_torch.ops import icp_nn
     from augmentedautoencoder_torch.ops import multi_codebook as mc
     from augmentedautoencoder_torch.ops import nn_query as nq
-    from augmentedautoencoder_torch.renderer.procedural import make_textured_asymmetric, save_ply
-    from augmentedautoencoder_torch.training.checkpoint import CheckpointManager
     from augmentedautoencoder_torch.utils import batch_iteration_indices
 
-    ws_path = os.path.join(root, "workspace")
-    os.environ["AE_WORKSPACE_PATH"] = ws_path
-    ws.init_workspace(ws_path)
-    ply = os.path.join(root, "embed_obj.ply")
-    save_ply(make_textured_asymmetric(subdivisions=4, radius=radius), ply)
-    with open(ws.get_config_file_path(ws_path, "embed"), "w") as fh:
-        fh.write("\n".join(f"MODEL_PATH: {ply}" if line.startswith("MODEL_PATH") else line
-                           for line in template_text.splitlines()) + "\n")
-    cfg, paths = factory.load_experiment_config("embed")
-    torch.manual_seed(seed)
-    CheckpointManager(paths["checkpoint_dir"]).save(0, AAE.from_config(cfg, precision="float32").state_dict())
+    ws_path, cfg, paths = embed_experiment(root, template_text, radius, seed)
     argv = ["embed"] + ([] if batch_size is None else ["--batch_size", str(batch_size)])
     bs = batch_size or max(cfg.batch_size, 256)
 
@@ -1442,7 +1476,7 @@ def embed_phase(root, device, template_text, radius=40.0, n_retrieve=64, seed=6,
     log(f"  views {spans[0]} and {spans[-1]} encoded on the CPU: max |dz| {dz:.2e}, top-1 own row "
         f"(or its exact duplicate): ok")
 
-    summary = {"views": n, "seconds": embed_s, "views_per_s": n / embed_s, "split": split,
+    summary = {"workspace": ws_path, "views": n, "seconds": embed_s, "views_per_s": n / embed_s, "split": split,
                "launches": launches, "cpu_count": os.cpu_count(), "render_workers": dataset.render_workers,
                "gpu_cpu_max_dz": dz, "render_ms_per_view": per_view}
     nb = split["batches"]
@@ -2395,7 +2429,12 @@ def eval_phase(root, device, template_text, n_images=24, instances=3, image_hw=(
         log(f"  {name}: {n} estimates on the CPU: the card's rows, max |dt| {dt:.2e} mm, max |dR| {dr:.2e}, "
             "errors max |d| " + ", ".join(f"{et} {d:.2e}" for et, d in derr.items()))
 
-    summary = {"estimates": n_est, "launches": launches, "plots": plots}
+    summary = {"estimates": n_est, "launches": launches, "plots": plots,
+               # for phase 12's overlays: the scene, the card's estimates and the CPU port's
+               "scene": {"data_root": data_root, "scene_dir": scene_dir, "ply": ply, "K": np.asarray(K),
+                         "card": [(r.im_id, r.R_est, r.t_est) for r in rgb["results"]],
+                         "cpu": [(r.im_id, r.R_est, r.t_est) for r in runs["rgb_cpu"]["results"]],
+                         "cpu_images": cpu_images}}
     # ---- device busy share of both runs over the first images, under torch.profiler
     if str(device).startswith("cuda"):
         for name, icp_on in (("rgb", False), ("icp", True)):
@@ -2723,6 +2762,428 @@ def import_phase(root, device, frames_of=16):
     return {"launches": launches, "import_s": import_s, "code_err": code_err, "pose_errs": pose_errs}
 
 
+# ------------------------------------------------------------------ phase 12
+DEMO_POSE_TOL = 1e-4  # phase 4's trafo bound: the demos' poses, card vs CPU port
+DEMO_LABEL_MAP = "item {\n  id: 1\n  name: 'obj'\n  display_name: 'obj'\n}\n"
+
+
+class DemoCamera:
+    """The demos' capture seam: serves `frames` in turn, one a read, a read
+    every `period_s` (a camera's pace for the grabber thread)."""
+
+    def __init__(self, frames, period_s=0.005):
+        self.frames, self.reads, self.period_s = frames, 0, period_s
+        self.released, self.props = False, {}
+
+    def __call__(self, src):
+        return self
+
+    def set(self, prop, value):
+        self.props[prop] = value
+
+    def read(self):
+        time.sleep(self.period_s)
+        frame = self.frames[self.reads % len(self.frames)]
+        self.reads += 1
+        return True, frame.copy()
+
+    def release(self):
+        self.released = True
+
+
+class DemoWindow:
+    """The demos' display seam: keeps what is shown; 'q' at the
+    `quit_after`-th key poll."""
+
+    def __init__(self, quit_after):
+        self.shown, self.polls, self.quit_after = [], 0, quit_after
+
+    def imshow(self, name, img):
+        import numpy as np
+
+        self.shown.append((name, np.array(img)))
+
+    def wait_key(self, ms):
+        self.polls += 1
+        return ord("q") if self.polls >= self.quit_after else 255
+
+
+def _frame_index(frames, frame):
+    import numpy as np
+
+    return next(i for i, f in enumerate(frames) if np.array_equal(f, frame))
+
+
+def detector_split(frames, reps=5, **detector_kwargs):
+    """`ForegroundContourDetector.process` on `frames` with nothing else
+    running, in host ms: the median over frames of each frame's median of
+    `reps` runs of each step -- the foreground mask, the 3x3 opening,
+    scipy's labelling, OpenCV's order (labelling and order less the
+    labelling), the stats (`connected_components_stats` less labelling and
+    order), the boxes (the whole less the rest), and the whole."""
+    import numpy as np
+    from scipy import ndimage
+
+    from augmentedautoencoder_torch.pose.detectors import ForegroundContourDetector
+    from augmentedautoencoder_torch.utils import draw
+
+    det = ForegroundContourDetector(**detector_kwargs)
+
+    def ms(fn, *args):
+        runs = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn(*args)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(runs))
+
+    rows = []
+    for frame in frames:
+        mask = det._foreground_mask(frame).astype(np.uint8)
+        opened = draw.morph_open3x3(mask)
+        r = {"mask": ms(lambda: det._foreground_mask(frame).astype(np.uint8)),
+             "opening": ms(draw.morph_open3x3, mask),
+             "label": ms(lambda: ndimage.label(opened != 0, structure=np.ones((3, 3), bool))),
+             "label_order": ms(draw._components_in_cv2_order, opened),
+             "label_order_stats": ms(draw.connected_components_stats, opened),
+             "whole": ms(det.process, frame)}
+        rows.append({"mask": r["mask"], "opening": r["opening"], "label": r["label"],
+                     "order": r["label_order"] - r["label"], "stats": r["label_order_stats"] - r["label_order"],
+                     "boxes": r["whole"] - r["mask"] - r["opening"] - r["label_order_stats"], "whole": r["whole"]})
+    return {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
+
+
+def demo_phase(root, device, template_text, embed_ws=None, eval_scene=None, n_crops=16, n_frames=8,
+               cpu_crops=4, n_scenes=4, seed=12):
+    """The demos and the detector-data generators on the card's machine (no
+    OpenCV), through their entry points, on phase 6's embedded experiment
+    (`embed_ws`; embedded again at the template's width if it is gone):
+      * cli.aae_image on `n_crops` PNG crops of re-rendered codebook views:
+        each (128, 256) estimate's row is its own or a duplicate within
+        MARGIN of its cosine (phase 6's rule), its estimate pane the render
+        of that rotation; the first `cpu_crops` again on the CPU: the same
+        rows;
+      * cli.aae_webcam through the capture and display seams, a camera of
+        720x540 renders and 'q' after `n_frames` frames: two panes a frame,
+        the camera released, each crop's row the CPU port's;
+      * cli.detector_webcam_pose with ForegroundContourDetector and a .pbtxt
+        label map on 720x540 frames of 1-3 rendered objects on black: the
+        boxes the detector's on the host, the poses within DEMO_POSE_TOL of
+        the CPU port's AePoseEstimator (a pose apart only where its crop's
+        two rows tie within MARGIN, listed), the overlay the CPU's outside
+        the text boxes; host ms a frame split into detect / estimate / draw,
+        then `detector_split` on the same frames;
+      * PoseVisualizer.render_poses and plot_scene_with_3d_boxes on phase
+        8's scene (`eval_scene`) with the card's estimates, equal to the same
+        with the CPU port's estimates of those images;
+      * cli.generate_syn_det_train and cli.generate_sixd_train (phase 8's
+        BOP scene), `n_scenes` each at the camera's size: PNG and VOC XML
+        written, every box inside the frame, seconds a scene.
+    B3's launches are counted over all of it. Returns a summary dict;
+    raises on any failed check."""
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from augmentedautoencoder_torch import factory
+    from augmentedautoencoder_torch.cli import (aae_image, aae_webcam, ae_embed, detector_webcam_pose,
+                                                generate_sixd_train, generate_syn_det_train)
+    from augmentedautoencoder_torch.codebook import f32_without_tf32
+    from augmentedautoencoder_torch.evaluation.plots import plot_scene_with_3d_boxes
+    from augmentedautoencoder_torch.ops import icp_nn
+    from augmentedautoencoder_torch.ops import multi_codebook as mc
+    from augmentedautoencoder_torch.ops import nn_query as nq
+    from augmentedautoencoder_torch.pose import AePoseEstimator, BoundingBox, PoseEstimate
+    from augmentedautoencoder_torch.pose.detectors import ForegroundContourDetector
+    from augmentedautoencoder_torch.pose.estimator import extract_square_patch_centered
+    from augmentedautoencoder_torch.pose.label_map import remap_box_classes
+    from augmentedautoencoder_torch.renderer import Renderer, load_mesh
+    from augmentedautoencoder_torch.renderer.write_xml import parse_voc_xml
+    from augmentedautoencoder_torch.utils import draw
+    from augmentedautoencoder_torch.utils.png import read_png, write_png
+    from augmentedautoencoder_torch.visualization import PoseVisualizer
+
+    t_setup = time.perf_counter()
+    if embed_ws is None or not os.path.isdir(embed_ws):
+        log("  phase 6's workspace is gone: embedding the experiment again")
+        embed_ws, _, _ = embed_experiment(os.path.join(root, "embed"), template_text)
+        ae_embed.main(["embed"], device=device)
+    os.environ["AE_WORKSPACE_PATH"] = embed_ws
+    cfg, paths = factory.load_experiment_config("embed")
+    W, H = cfg.render_dims
+    K = np.asarray(cfg.K, np.float64)
+    dataset = factory.build_dataset(paths["dataset_path"], cfg)
+    renderer = dataset.renderer
+    card_cb = factory.build_codebook_from_name("embed", device=device)
+    cpu_cb = factory.build_codebook_from_name("embed", device="cpu")
+    views = card_cb.viewsphere
+    emb = card_cb.embedding_normalized.float().cpu().numpy()
+    n_rows = len(views)
+    rng = np.random.RandomState(seed)
+
+    # aae_image's folder: crops of re-rendered codebook views
+    rows = np.sort(rng.choice(n_rows, n_crops, replace=False))
+    crop_dir, cpu_dir = os.path.join(root, "crops"), os.path.join(root, "crops_cpu")
+    os.makedirs(crop_dir)
+    os.makedirs(cpu_dir)
+    crops = np.concatenate([dataset.render_embedding_image_batch(int(r), int(r) + 1)[0] for r in rows])
+    crops = np.ascontiguousarray(crops.astype(np.uint8))
+    for k, (r, crop) in enumerate(zip(rows, crops)):
+        write_png(os.path.join(crop_dir, f"view_{r:06d}.png"), crop)
+        if k < cpu_crops:
+            write_png(os.path.join(cpu_dir, f"view_{r:06d}.png"), crop)
+
+    # the camera's frames: one view each at the render distance
+    def render(Rs, ts):
+        bgr, _, _ = renderer.render_many([0] * len(Rs), W, H, K, Rs, ts, cfg.clip_near, cfg.clip_far,
+                                         random_light=False)
+        return bgr
+
+    cam_rows = rng.choice(n_rows, n_frames, replace=False)
+    cam_frames = [render([views[r]], [np.array([0.0, 0.0, cfg.radius])]) for r in cam_rows]
+    # the detector's frames: 1-3 objects side by side on black
+    det_frames, det_counts = [], []
+    for i in range(n_frames):
+        k = 1 + i % 3
+        slots = rng.permutation(3)[:k]
+        Rs, ts = [], []
+        for slot in slots:
+            z = cfg.radius * rng.uniform(0.95, 1.05)
+            px = (slot - 1) * W / 3.0 + rng.uniform(-0.02, 0.02) * W
+            py = rng.uniform(-0.05, 0.05) * H
+            ts.append(np.array([px * z / K[0, 0], py * z / K[1, 1], z]))
+            Rs.append(views[rng.randint(n_rows)])
+        det_frames.append(render(Rs, ts))
+        det_counts.append(k)
+    label_map = os.path.join(root, "labels.pbtxt")
+    with open(label_map, "w") as fh:
+        fh.write(DEMO_LABEL_MAP)
+    test_cfg = os.path.join(root, "demo_test.cfg")
+    with open(test_cfg, "w") as fh:
+        fh.write("[auto_pose]\ncamPose = False\nupright = False\ntopk = 1\ncolor_format = bgr\n"
+                 "color_data_type = np.float32\ndepth_data_type = np.float32\n"
+                 "class_2_encoder = {'obj': 'embed'}\n")
+    detector_spec = ("augmentedautoencoder_torch.pose.detectors:ForegroundContourDetector:"
+                     + _json.dumps({"class_name": "1", "thresh": 5}))
+    det_argv = [test_cfg, "--detector", detector_spec, "--label_map", label_map,
+                "--camK", ",".join(repr(float(v)) for v in K.ravel())]
+    bg_dir = os.path.join(root, "backgrounds")
+    os.makedirs(bg_dir)
+    for i in range(4):
+        write_png(os.path.join(bg_dir, f"bg_{i}.png"), rng.randint(0, 256, (H - H * i // 8, W - W * i // 6, 3)).astype(np.uint8))
+    log(f"  set up in {time.perf_counter() - t_setup:.1f} s: {n_rows} codebook rows (latent "
+        f"{emb.shape[1]}), {n_crops} crops, {n_frames} camera frames of {W}x{H}")
+
+    # ---- the main path: counts from 0, read right after
+    wrappers = (mc.grouped_codebook_top1, mc.grouped_codebook_topk, nq.cosine_top1_cuda, icp_nn.batched_nn_cuda)
+    for fn in wrappers:
+        fn.launches = 0
+    secs = {}
+    t0 = time.perf_counter()
+    img_results = aae_image.main(["embed", "-f", crop_dir, "-o", os.path.join(root, "aae_image")], device=device)
+    secs["aae_image"] = time.perf_counter() - t0
+    web_cam, web_win, web_records = DemoCamera(cam_frames), DemoWindow(n_frames), []
+    t0 = time.perf_counter()
+    aae_webcam.main(["embed"], device=device, capture=web_cam, display=web_win, records=web_records)
+    secs["aae_webcam"] = time.perf_counter() - t0
+    det_cam, det_win, det_records = DemoCamera(det_frames), DemoWindow(n_frames), []
+    t0 = time.perf_counter()
+    detector_webcam_pose.main(det_argv, device=device, capture=det_cam, display=det_win, records=det_records)
+    secs["detector_webcam_pose"] = time.perf_counter() - t0
+    scene = eval_scene
+    mesh = load_mesh(scene["ply"])
+    vis_renderer = Renderer([], backend="native", meshes=[mesh])
+    with open(os.path.join(scene["scene_dir"], "scene_gt_info.json")) as fh:
+        gt_info = _json.load(fh)
+    sK = scene["K"]
+    s_hw = read_png(os.path.join(scene["scene_dir"], "rgb", f"{0:06d}.png")).shape[:2]
+
+    def overlays(estimates, tag):
+        out = []
+        for im in range(scene["cpu_images"]):
+            img = read_png(os.path.join(scene["scene_dir"], "rgb", f"{im:06d}.png"))
+            mine = [(R, t) for i, R, t in estimates if i == im]
+            est = []
+            for R, t in mine:
+                T = np.eye(4)
+                T[:3, :3], T[:3, 3] = R, np.asarray(t).ravel()
+                est.append(PoseEstimate(name="obj", trafo=T))
+            boxes = [BoundingBox(xmin=x / s_hw[1], ymin=y / s_hw[0], xmax=(x + w) / s_hw[1], ymax=(y + h) / s_hw[0],
+                                 classes={"obj": 1.0}) for x, y, w, h in (g["bbox_obj"] for g in gt_info[str(im)])]
+            vis = PoseVisualizer(vis_renderer, {"obj": 0}).render_poses(img, sK, est, boxes, in_meters=False)
+            path = plot_scene_with_3d_boxes(img, sK, mesh.vertices.min(axis=0), mesh.vertices.max(axis=0),
+                                            [(R, np.asarray(t).ravel()) for R, t in mine],
+                                            os.path.join(root, f"boxes_{tag}_{im}.png"))
+            with open(path, "rb") as fh:
+                out.append((vis, fh.read()))
+        return out
+
+    t0 = time.perf_counter()
+    card_overlays = overlays(scene["card"], "card")
+    secs["overlays"] = time.perf_counter() - t0
+    gen = {}
+    for name, cli, argv in (
+        ("syn", generate_syn_det_train, ["--model_paths", scene["ply"], "--obj_ids", "1", "--vocdevkit_path", bg_dir,
+                                         "--num_scenes", str(n_scenes), "--width", str(W), "--height", str(H),
+                                         "--K", repr([float(v) for v in K.ravel()]), "--radius", str(cfg.radius),
+                                         "--min_objects", "3", "--max_objects", "6"]),
+        ("sixd", generate_sixd_train, ["--dataset_path", scene["data_root"], "--scenes", "1", "--vocdevkit_path",
+                                       bg_dir, "--num_images", str(n_scenes), "--width", str(W), "--height", str(H),
+                                       "--seed", str(seed)]),
+    ):
+        t0 = time.perf_counter()
+        out_dir = os.path.join(root, f"gen_{name}")
+        np.random.seed(seed)  # generate_syn_det_train draws from the global np.random, as the JAX CLI does
+        gen[name] = cli.main(["--output_path", out_dir] + argv)
+        secs[f"generate_{name}"] = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    log(f"  main-path launches: {launches}; seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+    if str(device).startswith("cuda") and launches["cosine_top1_cuda"] < 1:
+        raise AssertionError(f"B3 was not launched by the demo path: {launches}")
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    # ---- aae_image
+    if len(img_results) != n_crops:
+        raise AssertionError(f"aae_image: {len(img_results)} results for {n_crops} crops")
+    got = np.array([r["idx"] for r in img_results])
+    want_files = sorted(os.path.join(crop_dir, f"view_{r:06d}.png") for r in rows)
+    if [r["file"] for r in img_results] != want_files:
+        raise AssertionError("aae_image: results out of the folder's order")
+    with f32_without_tf32():
+        z = card_cb.test_embedding(crops)
+    own, best = np.sum(z * emb[rows], axis=1), np.sum(z * emb[got], axis=1)
+    miss = (got != rows) & (own < best - MARGIN)
+    if miss.any():
+        raise AssertionError(f"aae_image: rows {rows[miss].tolist()} estimated as {got[miss].tolist()}")
+    for r, crop in zip(img_results, crops):
+        out = read_png(r["out_path"])
+        if out.shape != (cfg.h, 2 * cfg.w, 3):
+            raise AssertionError(f"aae_image: {r['out_path']} is {out.shape}")
+        if not np.array_equal(r["R"], views[r["idx"]]) or not np.array_equal(out[:, :cfg.w], crop):
+            raise AssertionError(f"aae_image: {r['out_path']}: rotation or input pane")
+        if not np.array_equal(out[:, cfg.w:], dataset.render_rot(r["R"])):
+            raise AssertionError(f"aae_image: {r['out_path']}: the estimate pane is not the render of its R")
+    cpu_results = aae_image.main(["embed", "-f", cpu_dir, "-o", os.path.join(root, "aae_image_cpu")], device="cpu")
+    if [r["idx"] for r in cpu_results] != got[:cpu_crops].tolist():
+        raise AssertionError(f"aae_image: CPU rows {[r['idx'] for r in cpu_results]}, card {got[:cpu_crops].tolist()}")
+    log(f"  aae_image: {n_crops} crops -> own row {int((got == rows).sum())}, a duplicate within {MARGIN} "
+        f"{int((got != rows).sum())}; (128, 256) estimates, panes = renders of R; the first {cpu_crops} on the "
+        f"CPU: the same rows")
+
+    # ---- aae_webcam
+    names = [n for n, _ in web_win.shown]
+    if not web_cam.released or len(web_records) != n_frames or \
+            names != ["resized webcam input", "estimated rendered view"] * n_frames:
+        raise AssertionError(f"aae_webcam: released {web_cam.released}, {len(web_records)} frames, shown {names}")
+    if web_cam.props != {3: 720, 4: 540}:
+        raise AssertionError(f"aae_webcam: the camera was set to {web_cam.props}")
+    web_crops = np.stack([r["crop"] for r in web_records])
+    cpu_idx = np.asarray(cpu_cb.nearest_rotation(web_crops, return_idcs=True)).ravel()
+    web_idx = np.array([r["idx"] for r in web_records])
+    with f32_without_tf32():
+        zc = cpu_cb.test_embedding(web_crops)
+    ties = np.flatnonzero(web_idx != cpu_idx)
+    for i in ties:
+        gap = abs(float(zc[i] @ emb[web_idx[i]] - zc[i] @ emb[cpu_idx[i]]))
+        if gap > MARGIN:
+            raise AssertionError(f"aae_webcam frame {i}: card row {web_idx[i]}, CPU row {cpu_idx[i]} ({gap:.2e} apart)")
+    for k, r in enumerate(web_records):
+        pane = web_win.shown[2 * k + 1][1]
+        if not np.array_equal(web_win.shown[2 * k][1], r["crop"]) or not np.array_equal(pane, dataset.render_rot(r["R"])):
+            raise AssertionError(f"aae_webcam frame {k}: the panes are not the crop and the render of its R")
+    log(f"  aae_webcam: {n_frames} frames, 2 panes each, the camera released; rows = the CPU port's "
+        f"({len(ties)} ties within {MARGIN})")
+
+    # ---- detector_webcam_pose
+    if not det_cam.released or len(det_records) != n_frames:
+        raise AssertionError(f"detector_webcam_pose: released {det_cam.released}, {len(det_records)} frames")
+    cpu_est = AePoseEstimator(test_cfg, device="cpu")
+    category_index = {1: {"id": 1, "name": "obj"}}
+    pose_err, pose_ties, n_poses = 0.0, [], 0
+    for k, r in enumerate(det_records):
+        i = _frame_index(det_frames, r["frame"])
+        want = remap_box_classes(ForegroundContourDetector(class_name="1", thresh=5).process(r["frame"]),
+                                 category_index)
+        if [(b.xmin, b.ymin, b.xmax, b.ymax, b.classes) for b in r["boxes"]] != \
+                [(b.xmin, b.ymin, b.xmax, b.ymax, b.classes) for b in want] or len(want) != det_counts[i]:
+            raise AssertionError(f"detector frame {k} (of {det_counts[i]} objects): boxes {r['boxes']}, want {want}")
+        cpu_poses = cpu_est.process(bboxes=want, color_img=r["frame"], camK=K)
+        if [p.name for p in r["poses"]] != [p.name for p in cpu_poses]:
+            raise AssertionError(f"detector frame {k}: poses of {[p.name for p in r['poses']]}")
+        n_poses += len(cpu_poses)
+        for j, (p, q) in enumerate(zip(r["poses"], cpu_poses)):
+            err = float(np.abs(p.trafo - q.trafo).max())
+            if err <= DEMO_POSE_TOL:
+                pose_err = max(pose_err, err)
+                continue
+            # a tie between two rows: the crop's CPU code as close to both
+            crop = extract_square_patch_centered(r["frame"], want[j].to_xywh(W, H), cfg.pad_factor,
+                                                 resize=(cfg.w, cfg.h), interpolation="linear", black_borders=True)
+            with f32_without_tf32():
+                cos = emb @ cpu_cb.test_embedding(crop).ravel()
+            gap = float(cos.max() - np.sort(cos)[-2])
+            if gap > MARGIN:
+                raise AssertionError(f"detector frame {k} pose {j}: card vs CPU trafo {err:.2e} with a top-1 margin "
+                                     f"of {gap:.2e}")
+            pose_ties.append((k, j, err, gap))
+        texts = np.zeros((H, W), bool)
+        for q in cpu_poses:
+            (tw, th), tb = draw.text_size(f"{q.name} z={q.trafo[2, 3]:.2f}m", 0.6, 2)
+            texts[max(0, 20 - th - 2):20 + tb + 3, max(0, 10 - 2):10 + tw + 2] = True
+        want_overlay = detector_webcam_pose.draw_overlay(r["frame"], want, cpu_poses)
+        if ((r["overlay"] != want_overlay).any(-1) & ~texts).any():
+            raise AssertionError(f"detector frame {k}: the overlay differs from the CPU's outside the labels")
+        if not np.array_equal(det_win.shown[k][1], r["overlay"]):
+            raise AssertionError(f"detector frame {k}: the window did not show the overlay")
+    ms = {key: [r["ms"][key] for r in det_records] for key in ("detect", "estimate", "draw")}
+    med = {key: float(np.median(v)) for key, v in ms.items()}
+    log(f"  detector_webcam_pose: {n_frames} frames, {n_poses} poses; boxes = the detector's, poses within "
+        f"{pose_err:.2e} of the CPU port's ({len(pose_ties)} ties within {MARGIN}: {pose_ties}); overlays = the "
+        f"CPU's outside the labels; host ms a frame (median of {n_frames}, results on the host): detect "
+        f"{med['detect']:.3f}, estimate {med['estimate']:.3f}, draw {med['draw']:.3f} (first frame "
+        + ", ".join(f"{key} {v[0]:.3f}" for key, v in ms.items()) + ")")
+
+    split = detector_split(det_frames, class_name="1", thresh=5)
+    log(f"  ForegroundContourDetector.process alone on the {n_frames} frames (host ms, median of the frames' "
+        f"medians of 5; the demo's detect above runs beside the pose stage and the grabber under the GIL): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+
+    # ---- overlays of phase 8's scene
+    cpu_overlays = overlays(scene["cpu"], "cpu")
+    for im, ((cv, cpng), (wv, wpng)) in enumerate(zip(card_overlays, cpu_overlays)):
+        if not np.array_equal(cv, wv) or cpng != wpng:
+            raise AssertionError(f"overlays of scene image {im}: the card's estimates draw other pixels than the CPU's")
+    log(f"  PoseVisualizer and plot_scene_with_3d_boxes on phase 8's first {scene['cpu_images']} images: the card's "
+        f"estimates drawn = the CPU port's ({secs['overlays']:.2f} s)")
+
+    # ---- the generators
+    for name, out in gen.items():
+        files = sorted(os.listdir(out["images"]))
+        xmls = sorted(os.listdir(out["annotations"]))
+        if len(files) != n_scenes or len(xmls) != n_scenes:
+            raise AssertionError(f"generate_{name}: {len(files)} images, {len(xmls)} annotations")
+        n_obj = 0
+        for f, x in zip(files, xmls):
+            img = read_png(os.path.join(out["images"], f))
+            objs = parse_voc_xml(os.path.join(out["annotations"], x))
+            n_obj += len(objs)
+            if img.shape != (H, W, 3):
+                raise AssertionError(f"generate_{name}: {f} is {img.shape}")
+            for o in objs:
+                x0, y0, x1, y1 = o["bb"]
+                if not (0 <= x0 <= x1 <= W and 0 <= y0 <= y1 <= H):
+                    raise AssertionError(f"generate_{name}: {x}: box {o['bb']} outside the {W}x{H} frame")
+        if n_obj == 0:
+            raise AssertionError(f"generate_{name}: no objects annotated")
+        log(f"  generate_{name}: {n_scenes} images {W}x{H} with {n_obj} boxes inside the frame, PNG + VOC XML; "
+            f"{secs[f'generate_{name}'] / n_scenes:.3f} s a scene")
+    return {"launches": launches, "seconds": secs, "detector_ms": med, "detector_split_ms": split,
+            "pose_err": pose_err,
+            "pose_ties": len(pose_ties), "syn_s_per_scene": secs["generate_syn"] / n_scenes,
+            "sixd_s_per_scene": secs["generate_sixd"] / n_scenes}
+
+
 def main() -> int:
     start = time.perf_counter()
     seconds = {}
@@ -2768,11 +3229,16 @@ def main() -> int:
         evaluation = phase("8 eval", eval_phase, os.path.join(root, "eval"), "cuda", template)
         log(f"phase 9: dsprites at the template's width, 64x64x1 ({time.perf_counter() - start:.1f} s in)")
         sprites = phase("9 dsprites", dsprites_phase, os.path.join(root, "dsprites"), "cuda", template)
-    log(f"phase 10: jpeg ({time.perf_counter() - start:.1f} s in)")
-    phase("10 jpeg", jpeg_phase)
-    with tempfile.TemporaryDirectory(prefix="aae_chip_smoke_import_") as root:
-        log(f"phase 11: ae_import_tf of the committed TF1 checkpoint, served ({time.perf_counter() - start:.1f} s in)")
-        imported = phase("11 import", import_phase, root, "cuda")
+        log(f"phase 10: jpeg ({time.perf_counter() - start:.1f} s in)")
+        phase("10 jpeg", jpeg_phase)
+        with tempfile.TemporaryDirectory(prefix="aae_chip_smoke_import_") as import_root:
+            log(f"phase 11: ae_import_tf of the committed TF1 checkpoint, served "
+                f"({time.perf_counter() - start:.1f} s in)")
+            imported = phase("11 import", import_phase, import_root, "cuda")
+        log(f"phase 12: the demos and the detector-data generators on phase 6's experiment "
+            f"({time.perf_counter() - start:.1f} s in)")
+        demo = phase("12 demo", demo_phase, os.path.join(root, "demo"), "cuda", template, embed["workspace"],
+                     evaluation["scene"])
     log(f"all phases passed in {time.perf_counter() - start:.1f} s; seconds per phase: "
         + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
 
@@ -2800,7 +3266,8 @@ def main() -> int:
                                  "train_bf16": train_bf16["launches"][name],
                                  "eval": evaluation["launches"][name],
                                  "dsprites": sprites["launches"][name],
-                                 "import": imported["launches"][name]},
+                                 "import": imported["launches"][name],
+                                 "demo": demo["launches"][name]},
             "timed": {"ms": "device, whole function from the user's inputs, cold L2",
                       "launch_ms": "device, kernel binding on operands in its input form, cold L2",
                       "call_ms": "host clock per call of the whole function, back to back, warm L2, "

@@ -32,7 +32,11 @@ _SCRIPT = textwrap.dedent(
     for want in ("evaluation.evaluator", "evaluation.pose_errors", "evaluation.scene_loader",
                  "evaluation.plots", "cli.ae_eval", "cli.compute_eval_errors", "cli.compute_bop_results",
                  "cli.ae_init_workspace", "config.eval_config", "cli.ae_import_tf", "training.tf_bundle",
-                 "training.tf_interop", "models.reference"):
+                 "training.tf_interop", "models.reference", "utils.draw", "utils._glyphs",
+                 "visualization", "visualization.box3d", "visualization.render_pose", "pose.detectors",
+                 "pose.label_map", "pose.webcam_video_stream", "cli.aae_image", "cli.aae_webcam",
+                 "cli.detector_webcam_pose", "renderer.scenerenderer", "renderer.write_xml",
+                 "cli.generate_syn_det_train", "cli.generate_sixd_train"):
         assert pkg.__name__ + "." + want in names, want
     for name in names:
         importlib.import_module(name)
