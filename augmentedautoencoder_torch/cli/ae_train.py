@@ -16,6 +16,17 @@ does; it renders nothing, so `-gen` only says so.
 
 Runs on the GPU: without CUDA it raises unless `main` is given
 device="cpu".
+
+Over several GPUs, one process per card:
+
+    torchrun --nproc_per_node=N -m augmentedautoencoder_torch.cli.ae_train <exp>
+
+trains on the global batch BATCH_SIZE (which must divide by N) as one
+process would (training/trainer.py). The primary rank renders or loads the
+training set and the backgrounds and writes their caches while the others
+wait, then they load the caches; only the primary rank writes checkpoints,
+figures and summaries; a resume reads the same checkpoint on every rank.
+`main` joins a process group that a caller has started (gloo on the CPU).
 """
 
 from __future__ import annotations
@@ -29,7 +40,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from .. import factory
+from .. import factory, parallel
 from .. import workspace as ws
 from ..data.dsprites import load_dsprites_training_images
 from ..data.pipeline import DeviceDataset
@@ -93,35 +104,44 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> Optional[Trainer]
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
 
+    parallel.initialize(device=device)  # under torchrun: join the group, pin the card
     device = torch.device(device) if device is not None else factory.default_device()
+    primary = parallel.is_primary()
     experiment_name, experiment_group = split_experiment_name(args.experiment_name)
     cfg, paths = factory.load_experiment_config(experiment_name, experiment_group, prefer_log_dir=False)
-    for key in ("checkpoint_dir", "train_fig_dir", "dataset_path"):
-        os.makedirs(paths[key], exist_ok=True)
-    # the cfg is copied into the log dir and re-read at inference (ae_train.py:72)
-    if os.path.abspath(paths["cfg_file"]) != os.path.abspath(paths["exp_cfg_file"]):
-        shutil.copy2(paths["cfg_file"], paths["exp_cfg_file"])
-
-    device_ds = load_device_dataset(cfg, paths, device, args.seed, gen_only=args.gen)
+    device_ds = None
+    if primary:
+        for key in ("checkpoint_dir", "train_fig_dir", "dataset_path"):
+            os.makedirs(paths[key], exist_ok=True)
+        # the cfg is copied into the log dir and re-read at inference (ae_train.py:72)
+        if os.path.abspath(paths["cfg_file"]) != os.path.abspath(paths["exp_cfg_file"]):
+            shutil.copy2(paths["cfg_file"], paths["exp_cfg_file"])
+        device_ds = load_device_dataset(cfg, paths, device, args.seed, gen_only=args.gen)
+    parallel.barrier()  # the other ranks load the caches the primary rank wrote
+    if not primary and not args.gen:
+        device_ds = load_device_dataset(cfg, paths, device, args.seed)
     if device_ds is None:
-        print("dsprites renders nothing; exiting (-gen)" if cfg.model == "dsprites"
-              else "training data generated; exiting (-gen)")
+        if primary:
+            print("dsprites renders nothing; exiting (-gen)" if cfg.model == "dsprites"
+                  else "training data generated; exiting (-gen)")
         return None
     if args.d:
-        x, y = device_ds.sample_batch(torch.Generator(device=device).manual_seed(args.seed), cfg.batch_size)
-        out = os.path.join(paths["train_fig_dir"], "debug_augmented_batch.png")
-        save_grid(out, [x.cpu().numpy(), y.cpu().numpy()])
-        print(f"debug grid written to {out}")
+        if primary:
+            x, y = device_ds.sample_batch(torch.Generator(device=device).manual_seed(args.seed), cfg.batch_size)
+            out = os.path.join(paths["train_fig_dir"], "debug_augmented_batch.png")
+            save_grid(out, [x.cpu().numpy(), y.cpu().numpy()])
+            print(f"debug grid written to {out}")
         return None
 
     # summaries land in the checkpoint dir, as the reference's TF FileWriter (ae_train.py:117)
-    writer = MetricWriter(paths["checkpoint_dir"])
+    writer = MetricWriter(paths["checkpoint_dir"]) if primary else None
     trainer = Trainer(cfg, device_ds, seed=args.seed, metric_writer=writer)
     ckpt = CheckpointManager(paths["checkpoint_dir"])
     payload = ckpt.restore_train_state(trainer.model, trainer.optimizer)
     if payload is not None:
         trainer.step = int(payload["step"])
-        print(f"resuming from step {trainer.step}")
+        if primary:
+            print(f"resuming from step {trainer.step}")
     recon_fn = make_reconstruction_fn(trainer.model)
 
     def save_hook(step: int, tr: Trainer) -> None:
@@ -134,13 +154,16 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> Optional[Trainer]
 
     previous = signal.signal(signal.SIGINT, lambda sig, frame: trainer.request_stop())
     try:
-        trainer.train(save_hook=save_hook)
+        trainer.train(save_hook=save_hook, progress=primary)
     finally:
         signal.signal(signal.SIGINT, previous)
-        writer.close()
-    print(f"done at step {trainer.step}")
+        if writer is not None:
+            writer.close()
+    if primary:
+        print(f"done at step {trainer.step}")
     return trainer
 
 
 if __name__ == "__main__":
     main()
+    parallel.shutdown()

@@ -24,6 +24,8 @@ import torch
 from .geometry.transform import matrices_from_quaternions, quaternions_from_matrices
 from .ops._cuda import stream_width
 from .ops.nn_query import cosine_top1, cosine_topk, l2_normalize, pad_columns
+from .parallel.distributed import all_gather_rows
+from .parallel.mesh import DATA_AXIS, axis_index, axis_size
 from .utils import batch_iteration_indices
 
 EncodeFn = Callable[[torch.Tensor], torch.Tensor]  # (B,H,W,C) float in [0,1] -> (B, latent)
@@ -45,6 +47,21 @@ def f32_without_tf32():
         yield
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
+
+
+def _gather_runs(codes: torch.Tensor, bbs: np.ndarray, rows, mesh) -> Tuple[torch.Tensor, np.ndarray]:
+    """Every rank's (codes, boxes) of its run of views, `rows[r]` rows on
+    rank r, stacked in rank (so view) order over the mesh's data axis:
+    the runs padded to the longest for one all-gather each."""
+    group, longest = mesh.get_group(DATA_AXIS), max(rows)
+
+    def gather(t: torch.Tensor) -> torch.Tensor:
+        pad = torch.zeros((longest - t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+        out = all_gather_rows(torch.cat([t, pad]), group).view((len(rows), longest) + tuple(t.shape[1:]))
+        return torch.cat([out[r, :n] for r, n in enumerate(rows)])
+
+    boxes = gather(torch.from_numpy(np.ascontiguousarray(bbs)).to(codes.device))
+    return gather(codes), boxes.cpu().numpy()
 
 
 # Deterministic multi-crop TTA pattern (relative bbox-center offsets);
@@ -143,6 +160,7 @@ class Codebook:
         progress: bool = True,
         device: Optional[Union[str, torch.device]] = None,
         profile: Optional[Dict[str, float]] = None,
+        mesh=None,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Stream rendered view batches through the encoder on `device` (the
         GPU unless given "cpu"); returns (embedding_normalized (N, latent)
@@ -157,7 +175,14 @@ class Codebook:
         host, as the JAX package does. `profile`, if given, receives seconds:
         render (summed on the render thread), wait (host blocked on the next
         batch), h2d and encode (device, CUDA events; 0 on the CPU), readback
-        and total."""
+        and total.
+
+        With a mesh, each rank of its data axis renders and encodes its own
+        contiguous run of the batches (its own render thread, pinned buffer
+        and batches: the build is bound by the host render), and the codes
+        and boxes are gathered in view order before the readback (`gather`
+        in `profile`, seconds). The batches are the one-process build's, so
+        are the rows; every rank returns them."""
         from .factory import default_device  # factory imports this module
 
         device = torch.device(device) if device is not None else default_device()
@@ -170,6 +195,15 @@ class Codebook:
         cuda = device.type == "cuda"
         times = {"render": 0.0, "wait": 0.0, "h2d": 0.0, "encode": 0.0, "readback": 0.0}
         t_start = time.perf_counter()
+        runs = [spans]
+        if mesh is not None:
+            # rank r takes the r-th contiguous run of batches: [spans of 0, ..., spans of W-1]
+            w = axis_size(mesh, DATA_AXIS)
+            if len(spans) < w:
+                raise ValueError(f"{len(spans)} view batches do not spread over {w} data ranks")
+            runs = [[spans[i] for i in part] for part in np.array_split(np.arange(len(spans)), w)]
+            spans = runs[axis_index(mesh, DATA_AXIS)]
+        first = spans[0][0]
 
         def render(a, e):
             t0 = time.perf_counter()
@@ -212,9 +246,14 @@ class Codebook:
                 if cuda:
                     ev[2].record()
                 if codes is None:
-                    codes = torch.empty((embedding_size, z.shape[1]), dtype=torch.float32, device=device)
-                codes[a:e] = z[: e - a]
+                    codes = torch.empty((spans[-1][1] - first, z.shape[1]), dtype=torch.float32, device=device)
+                codes[a - first:e - first] = z[: e - a]
                 bb_chunks.append(np.asarray(obj_bbs))
+        bbs = np.concatenate(bb_chunks)
+        if mesh is not None:
+            t0 = time.perf_counter()
+            codes, bbs = _gather_runs(codes, bbs, [run[-1][1] - run[0][0] for run in runs], mesh)
+            times["gather"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         z_all = codes.cpu().numpy()
         times["readback"] = time.perf_counter() - t0
@@ -225,7 +264,7 @@ class Codebook:
         times["total"] = time.perf_counter() - t_start
         if profile is not None:
             profile.update(times, batches=len(spans), views=embedding_size)
-        return z_all.astype(np.float32), np.concatenate(bb_chunks)
+        return z_all.astype(np.float32), bbs
 
     # ------------------------------------------------------------- queries
     def _require_embedding(self):

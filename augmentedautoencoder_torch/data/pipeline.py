@@ -23,6 +23,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import shard_range
 from .augment import _bernoulli, _cells, build_augmenter, upsample_cells
 
 #: bounded retries of the occlusion loops, as in the JAX package (the
@@ -91,6 +92,29 @@ def square_occlusion(masks, noof_obj_pixels, draws, max_occl: float) -> torch.Te
     cand = torch.where(draws["apply"][:, :, None, None], obj0[None] & keep, obj0[None])
     ok = cand.sum(dim=(2, 3)).float() / orig >= (1.0 - max_occl)
     return ~_first_ok(ok, cand, obj0)
+
+
+def _rows(params, rows: slice):
+    """An augmenter's params with each tensor cut to `rows` of its leading
+    (batch) axis; other leaves (a random order's child indices) kept."""
+    if isinstance(params, dict):
+        return {k: _rows(v, rows) for k, v in params.items()}
+    if isinstance(params, list):
+        return [_rows(v, rows) for v in params]
+    return params[rows] if torch.is_tensor(params) else params
+
+
+def slice_draws(draws: Dict, start: int, stop: int) -> Dict:
+    """`draw_batch`'s draws of batch rows [start, stop) (the occlusion
+    retries keep their leading axis)."""
+    rows = slice(start, stop)
+    out = {"idcs": draws["idcs"][rows], "bg_idcs": draws["bg_idcs"][rows], "aug": _rows(draws["aug"], rows)}
+    for key in ("rocc", "socc"):
+        if key in draws:
+            out[key] = {k: v[:, rows] for k, v in draws[key].items()}
+    if "clutter" in draws:
+        out["clutter"] = [_rows(paste, rows) for paste in draws["clutter"]]
+    return out
 
 
 class DeviceDataset:
@@ -205,5 +229,16 @@ class DeviceDataset:
         x = self.augmenter.apply(draws["aug"], x.float())
         return x / 255.0, y.float() / 255.0
 
-    def sample_batch(self, gen: torch.Generator, batch_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self.compose_batch(self.draw_batch(gen, batch_size))
+    def sample_batch(
+        self, gen: torch.Generator, batch_size: int, shard: Tuple[int, int] = (0, 1)
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(batch_x, batch_y) of `batch_size` from `gen`. With `shard`
+        (index, count), the draws are the whole batch's, then slice `index`
+        of `count` is composed: a rank composes its rows of the batch one
+        process draws (drawing per rank would not: `randperm(n)[:b]`
+        depends on b)."""
+        draws = self.draw_batch(gen, batch_size)
+        index, count = shard
+        if count > 1:
+            draws = slice_draws(draws, *shard_range(batch_size, index, count))
+        return self.compose_batch(draws)

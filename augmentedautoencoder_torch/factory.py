@@ -23,20 +23,23 @@ from .codebook import Codebook, normalize_uint8
 from .config import TrainConfig, load_train_config
 from .geometry import view_sampler
 from .models import AAE
+from .parallel.distributed import all_gather_rows, in_group, rank_device
+from .parallel.mesh import DATA_AXIS, batch_sharding
 from .training.checkpoint import CheckpointManager
 
 Device = Union[str, torch.device]
 
 
 def default_device() -> torch.device:
-    """The device of an entry point given none: the GPU. Without CUDA this
+    """The device of an entry point given none: the GPU, and inside a
+    process group the rank's own card, `cuda:LOCAL_RANK`. Without CUDA this
     raises instead of serving on the CPU behind the caller's back."""
     if not torch.cuda.is_available():
         raise RuntimeError(
             "augmentedautoencoder_torch runs on a CUDA device and none is available; "
             'pass device="cpu" to run on the CPU'
         )
-    return torch.device("cuda")
+    return rank_device() if in_group() else torch.device("cuda")
 
 
 def build_dataset(dataset_path: str, cfg: TrainConfig, renderer=None, render_workers: int = 0):
@@ -62,15 +65,22 @@ def build_train_model(cfg: TrainConfig, device: Device, seed: int = 0) -> AAE:
     return model.to(device)
 
 
-def make_encode_fn(model: AAE):
+def make_encode_fn(model: AAE, mesh=None):
     """Deterministic encoder forward on the model's device: (B,H,W,C) float
-    in [0,1] or uint8 (normalized on the device) -> (B, latent) f32."""
+    in [0,1] or uint8 (normalized on the device) -> (B, latent) f32.
+
+    With a mesh, each rank encodes its slice of the batch along the data
+    axis and the codes are gathered in batch order, so every rank returns
+    the whole (B, latent), as the JAX package's sharded encode does; B must
+    divide by the data axis."""
 
     @torch.inference_mode()
     def encode(x: torch.Tensor) -> torch.Tensor:
         if x.dtype == torch.uint8:
             x = normalize_uint8(x)
-        return model.encode(x)
+        if mesh is None:
+            return model.encode(x)
+        return all_gather_rows(model.encode(batch_sharding(mesh, x)), mesh.get_group(DATA_AXIS))
 
     return encode
 

@@ -133,11 +133,16 @@ class AAE(nn.Module):
         train: bool = False,
         generator: Optional[torch.Generator] = None,
         noise: Optional[torch.Tensor] = None,
+        shard: Tuple[int, int] = (0, 1),
     ) -> AAEOutputs:
         """Encode x, decode, and score against target (both (B, H, W, C) in
         [0, 1]). A VAE in training decodes z + sigma * noise, the noise given
         or drawn from `generator`; otherwise it decodes the mean. BatchNorm
-        uses batch statistics in `self.training` mode."""
+        uses batch statistics in `self.training` mode. `shard` (index, count)
+        says that x is slice `index` of `count` equal slices of a global
+        batch: drawn noise is then the global batch's, (count * B, latent),
+        and this slice takes its rows, so the ranks decode what one process
+        decodes on the global batch."""
         if self.decoder is None:
             raise RuntimeError("this AAE was built without its decoder: build it with decoder=True")
         if self.variational > 0:
@@ -145,7 +150,10 @@ class AAE(nn.Module):
             code = z
             if train and (noise is not None or generator is not None):
                 if noise is None:
-                    noise = torch.randn(z.shape, generator=generator, device=z.device, dtype=z.dtype)
+                    index, count = shard
+                    b = z.shape[0]
+                    noise = torch.randn((count * b,) + tuple(z.shape[1:]), generator=generator,
+                                        device=z.device, dtype=z.dtype)[index * b:(index + 1) * b]
                 code = z + q_sigma * noise
         else:
             z = self.encoder(x)

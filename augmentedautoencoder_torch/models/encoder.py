@@ -29,10 +29,12 @@ import math
 from typing import Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_upconv import conv2d
+from ..parallel.distributed import all_reduce_sum
 
 
 def head_dtype(compute_dtype: torch.dtype) -> torch.dtype:
@@ -72,17 +74,29 @@ class _FlaxBatchNorm:
     In eval mode the same y on the running statistics. Either way x is
     normalized in f32 (f64 in an f64 model), as Flax's `force_float32_reductions`
     promotes it, and y is cast back to x's dtype: in bf16 the parameters
-    and statistics stay f32."""
+    and statistics stay f32.
+
+    With a process `group` (`sync_batch_norm`), the training statistics are
+    the global batch's, as XLA computes the JAX mean over the whole sharded
+    batch: the f32 sums of x and x^2 are all-reduced over the group (the
+    gradient flows back through the sum to every rank) and divided by the
+    global count, so every rank folds the same running statistics."""
 
     flax_momentum = 0.99
+    group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dims = [0] + list(range(2, x.dim()))
         shape = [1, -1] + [1] * (x.dim() - 2)
         xf = x.to(head_dtype(x.dtype))
         if self.training:
-            mean = xf.mean(dims)
-            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            if self.group is None:
+                mean, mean_sq = xf.mean(dims), (xf * xf).mean(dims)
+            else:
+                count = xf.numel() // xf.shape[1] * dist.get_world_size(self.group)
+                sums = all_reduce_sum(torch.stack([xf.sum(dims), (xf * xf).sum(dims)]), self.group)
+                mean, mean_sq = sums[0] / count, sums[1] / count
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.flax_momentum
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
@@ -92,6 +106,15 @@ class _FlaxBatchNorm:
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
+
+
+def sync_batch_norm(model: nn.Module, group) -> nn.Module:
+    """Set the process group over which `model`'s BatchNorms take their
+    training statistics (None: this process's batch alone). Returns model."""
+    for m in model.modules():
+        if isinstance(m, _FlaxBatchNorm):
+            m.group = group
+    return model
 
 
 class FlaxBatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):

@@ -10,6 +10,12 @@
     runs the plain version `cosine_top1_plain`. Both take a codebook stored
     with zero columns beyond the queries' width (`pad_columns`).
 
+  * `make_cosine_top1_sharded`, `make_cosine_topk_sharded` -- the
+    row-sharded queries over a `parallel` mesh: each rank scores its block
+    of rows with the kernels above (top-1: `cosine_top1_cuda`; top-k:
+    `grouped_codebook_topk` on the block as a one-plane slab), and the
+    (B, k) candidates are all-gathered and ranked again.
+
 Codebook rows are expected pre-normalized. Ranked results follow
 `lax.top_k`: best first, equal scores by the lower index.
 """
@@ -19,6 +25,9 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from ..parallel.distributed import all_gather_rows
+from ..parallel.mesh import axis_index
 
 Tensor = torch.Tensor
 
@@ -113,3 +122,81 @@ cosine_top1_cuda.launches = 0
 def cosine_top1(z: Tensor, codebook: Tensor) -> Tuple[Tensor, Tensor]:
     """Best match per query: the kernel on a GPU, its plain version on CPU."""
     return cosine_top1_cuda(z, codebook)
+
+
+def _rerank_shards(vals: Tensor, idcs: Tensor, group, k: int) -> Tuple[Tensor, Tensor]:
+    """The global top-k from every rank's (B, k) candidates (global indices):
+    one all-gather of both, packed as f64 (exact for f32 scores and int32
+    indices), laid out shard-major, so a stable ranking sends equal scores
+    to the lowest global index, as `lax.top_k` over the whole matrix."""
+    b = vals.shape[0]
+    packed = torch.stack([vals.double(), idcs.double()])[None]  # (1, 2, B, k)
+    gathered = all_gather_rows(packed, group)  # (W, 2, B, k)
+    vg = gathered[:, 0].permute(1, 0, 2).reshape(b, -1)  # (B, W * k)
+    ig = gathered[:, 1].permute(1, 0, 2).reshape(b, -1)
+    top, pos = topk_lowest_index(vg, k)
+    return top.float(), torch.gather(ig, 1, pos).to(torch.int32)
+
+
+def _built_by_one_rank(z: Tensor, group, built: list) -> None:
+    """Before a sharded query's first launch: rank 0 of the group builds the
+    kernel library while the other ranks wait, then they load its build
+    (one nvcc run a host, not one a rank)."""
+    if built or z.device.type != "cuda":
+        return
+    import torch.distributed as dist
+
+    from . import _cuda
+
+    if dist.get_rank(group) == 0:
+        _cuda.lib()
+    dist.barrier(group=group)
+    built.append(True)
+
+
+def make_cosine_top1_sharded(mesh, axis: str = "data"):
+    """Row-sharded codebook query (the JAX package's
+    `make_cosine_top1_sharded`): the codebook's rows shard over `axis`, the
+    queries are replicated. Each rank scores its block of rows
+    [r * N/W, (r + 1) * N/W) with `cosine_top1_cuda` (B3 on a GPU; the JAX
+    local formula: f32 normalize, cast to the codebook dtype, f32 products),
+    and the ranks' (value, global index) pairs are all-gathered and ranked:
+    the traffic is O(B * W) scalars, never the (B, N) matrix.
+
+    Returns (z, block) -> (vals (B,) f32, idcs (B,) int32), the same on
+    every rank; `block` is this rank's rows
+    (`parallel.codebook_sharding(mesh, cb, shard_rows=True, axis=axis)`),
+    stored as `cosine_top1_cuda` takes them (zero columns up to the
+    kernels' width)."""
+    group, index, built = mesh.get_group(axis), axis_index(mesh, axis), []
+
+    def query(z: Tensor, block: Tensor) -> Tuple[Tensor, Tensor]:
+        _built_by_one_rank(z, group, built)
+        vals, idcs = cosine_top1_cuda(z, block)
+        vals, idcs = _rerank_shards(vals[:, None], idcs[:, None] + index * block.shape[0], group, 1)
+        return vals[:, 0], idcs[:, 0]
+
+    return query
+
+
+def make_cosine_topk_sharded(mesh, k: int, axis: str = "data"):
+    """Row-sharded top-k query (the JAX package's `make_cosine_topk_sharded`)
+    for the serving aggregation path: each rank ranks its own block's top-k
+    with `grouped_codebook_topk` (B2 on a GPU, k <= 32) on the block as a
+    one-plane slab of its rows, offsets the indices to global ones, then
+    the (B, k) candidates are all-gathered and ranked again (O(B * k * W)
+    scalars). Ties resolve to the lowest global row index.
+
+    Returns (z, block) -> (vals (B, k) f32, idcs (B, k) int32), the same on
+    every rank; `block` as for `make_cosine_top1_sharded`."""
+    from .multi_codebook import grouped_codebook_topk  # multi_codebook imports this module
+
+    group, index, built = mesh.get_group(axis), axis_index(mesh, axis), []
+
+    def query(z: Tensor, block: Tensor) -> Tuple[Tensor, Tensor]:
+        _built_by_one_rank(z, group, built)
+        n = block.shape[0]
+        vals, idcs = grouped_codebook_topk(z, block[None], 0, n, k=k)
+        return _rerank_shards(vals, idcs + index * n, group, k)
+
+    return query

@@ -20,6 +20,9 @@ its decoder and optimizer under keys of their own.
 
 Restore takes the newest step, or the first step whose number contains
 `at_step` as a substring (the JAX package's `--at_step` semantics).
+
+Over several ranks only the primary rank writes (`save` refuses on the
+others: their writes would race on the same file); every rank may read.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ import re
 from typing import Any, Dict, List, Optional
 
 import torch
+
+from ..parallel.distributed import is_primary
 
 _CKPT_RE = re.compile(r"^chkpt-(\d+)\.pt$")
 _STAT_SUFFIXES = ("running_mean", "running_var", "num_batches_tracked")
@@ -85,7 +90,9 @@ class CheckpointManager:
     ) -> str:
         """Write chkpt-<step>.pt atomically. `decoder.*` keys of
         `state_dict` go under `decoder`, the rest is split into params and
-        batch_stats."""
+        batch_stats. Only the primary rank of a process group writes."""
+        if not is_primary():
+            raise RuntimeError("only the primary rank writes checkpoints")
         encoder = {k: v for k, v in state_dict.items() if not k.startswith("decoder.")}
         decoder = {k: v for k, v in state_dict.items() if k.startswith("decoder.")}
         params, stats = split_state_dict(encoder)

@@ -15,11 +15,22 @@ of a step are stacked into one device vector and copied without blocking
 into pinned host memory, and their values are read 50 logs later, or at a
 save, or when the loop ends, even by an exception. No step waits for the
 device to report a loss.
+
+Over several ranks (a process group, one process per card, the data axis
+of a `parallel` mesh) a run computes what one process computes on the
+global batch, up to summation order, as the JAX step over a data mesh
+does: every rank draws the global batch's random numbers from the step's
+generator and composes its slice (data/pipeline.py), BatchNorm takes the
+global batch's statistics (`models.encoder.sync_batch_norm`), DDP averages
+the gradients (the ranks' slices are equal, so the average of their means
+is the global mean), the logged losses are reduced to the global batch's,
+and the primary rank alone saves, the others waiting at a barrier.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -27,6 +38,9 @@ import torch
 
 from ..codebook import f32_without_tf32
 from ..data.pipeline import DeviceDataset
+from ..models.encoder import sync_batch_norm
+from ..parallel.distributed import barrier, is_primary, world_size
+from ..parallel.mesh import DATA_AXIS, axis_index, axis_size, make_mesh
 from .state import make_optimizer
 
 Losses = Dict[str, torch.Tensor]
@@ -42,15 +56,48 @@ def derive_seed(seed: int, tag: int) -> int:
     return (int(a) << 31) ^ int(b)
 
 
-def make_train_step(model, optimizer, dataset: DeviceDataset, batch_size: int) -> Callable[[torch.Generator], Losses]:
+def data_parallel(model, mesh):
+    """`model` wrapped for the mesh's data axis: DDP over the axis's group
+    (pinned to the model's card on CUDA) and, with more than one rank,
+    BatchNorm on the global batch's statistics. `broadcast_buffers` is off:
+    the global statistics leave every rank's running statistics equal, so
+    a broadcast each step would move bytes for nothing."""
+    group = mesh.get_group(DATA_AXIS)
+    if axis_size(mesh, DATA_AXIS) > 1:
+        sync_batch_norm(model, group)
+    device = next(model.parameters()).device
+    with warnings.catch_warnings():
+        # newer torch renames the flag forward_sync_buffers (and warns); the
+        # card's torch knows only this one, and its meaning is the one wanted
+        warnings.filterwarnings("ignore", message="`broadcast_buffers` is deprecated", category=FutureWarning)
+        return torch.nn.parallel.DistributedDataParallel(
+            model, device_ids=[device] if device.type == "cuda" else None, process_group=group,
+            broadcast_buffers=False,
+        )
+
+
+def make_train_step(
+    model, optimizer, dataset: DeviceDataset, batch_size: int, mesh=None
+) -> Callable[[torch.Generator], Losses]:
     """(generator) -> losses of one step: draw and compose a batch, forward
     and backward in training mode (batch statistics), one optimizer
-    update. The returned losses are detached device scalars."""
+    update. The returned losses are detached device scalars.
+
+    With a mesh, `batch_size` is the global batch, which must divide by the
+    data axis; this rank composes its slice and steps `data_parallel(model,
+    mesh)`, and its losses are its slice's (`Trainer` reduces the logged
+    ones to the global batch's)."""
+    shard = (0, 1)
+    if mesh is not None:
+        shard = (axis_index(mesh, DATA_AXIS), axis_size(mesh, DATA_AXIS))
+        if batch_size % shard[1]:
+            raise ValueError(f"BATCH_SIZE {batch_size} does not divide over {shard[1]} data ranks")
+        model = data_parallel(model, mesh)
 
     def step(gen: torch.Generator) -> Losses:
-        x, y = dataset.sample_batch(gen, batch_size)
+        x, y = dataset.sample_batch(gen, batch_size, shard)
         model.train()
-        out = model(x, y, train=True, generator=gen)
+        out = model(x, y, train=True, generator=gen, shard=shard)
         optimizer.zero_grad()
         out.total_loss.backward()
         optimizer.step()
@@ -76,21 +123,43 @@ def make_reconstruction_fn(model):
     return fn
 
 
+def global_losses(vec: torch.Tensor, names: List[str], group) -> torch.Tensor:
+    """The ranks' logged losses (a vector in `names` order) as one process
+    logs them on the global batch: each is a mean over equal slices, so its
+    average over the ranks, except `z_std`, rebuilt from the ranks' means
+    of z and z^2."""
+    vec = vec.clone()
+    std = names.index("z_std") if "z_std" in names else None
+    if std is not None:
+        mean = names.index("z_mean")
+        vec[std] = vec[std] * vec[std] + vec[mean] * vec[mean]
+    torch.distributed.all_reduce(vec, group=group)
+    vec /= torch.distributed.get_world_size(group)
+    if std is not None:
+        vec[std] = torch.sqrt(torch.clamp(vec[std] - vec[mean] * vec[mean], min=0.0))
+    return vec
+
+
 class Trainer:
     """The training loop with the reference's save and summary cadence.
-    `step` counts the updates made, as the JAX TrainState.step."""
+    `step` counts the updates made, as the JAX TrainState.step. Inside a
+    process group of more than one rank it builds the data mesh itself
+    (`parallel.make_mesh`), as the JAX Trainer does over several devices;
+    `model` stays the bare module (checkpoints, grids), the step runs its
+    DDP wrapper."""
 
-    def __init__(self, cfg, dataset: DeviceDataset, seed: int = 0, metric_writer=None):
+    def __init__(self, cfg, dataset: DeviceDataset, seed: int = 0, metric_writer=None, mesh=None):
         from ..factory import build_train_model  # factory imports this package
 
         self.cfg = cfg
         self.dataset = dataset
         self.device = dataset.device
         self.seed = int(seed)
+        self.mesh = mesh if mesh is not None else (make_mesh() if world_size() > 1 else None)
         self.model = build_train_model(cfg, self.device, derive_seed(seed, INIT_TAG))
         self.optimizer = make_optimizer(self.model, cfg)
         self.step = 0
-        self.step_fn = make_train_step(self.model, self.optimizer, dataset, cfg.batch_size)
+        self.step_fn = make_train_step(self.model, self.optimizer, dataset, cfg.batch_size, self.mesh)
         self.generator = torch.Generator(device=self.device)
         self.metric_writer = metric_writer
         self._stop_requested = False
@@ -100,7 +169,8 @@ class Trainer:
 
     def request_stop(self) -> None:
         """Gentle SIGINT-style stop: finish the current iteration, save,
-        exit (reference ae_train.py:30-34)."""
+        exit (reference ae_train.py:30-34). Over several ranks every rank
+        must be asked (torchrun passes a terminal's Ctrl-C to each)."""
         self._stop_requested = True
 
     def generator_for(self, step: int) -> torch.Generator:
@@ -149,9 +219,12 @@ class Trainer:
             losses = self.step_fn(self.generator_for(i))
             self.step = i + 1
             self.step_end_times.append(time.perf_counter())
-            if self.step % log_every == 0 and (self.metric_writer or progress):
+            # every rank reduces at the same steps, whatever it writes
+            if self.step % log_every == 0 and (self.metric_writer or progress or self.mesh is not None):
                 names = list(losses)
                 vec = torch.stack([losses[k].float() for k in names])
+                if self.mesh is not None:
+                    vec = global_losses(vec, names, self.mesh.get_group(DATA_AXIS))
                 host = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=cuda)
                 host.copy_(vec, non_blocking=cuda)
                 done = None
@@ -168,10 +241,16 @@ class Trainer:
                               + f" ({rate:.1f} it/s)", flush=True)
             if save_hook and (self.step % self.cfg.save_interval == 0 or self.step == num_iter):
                 flush_pending()
-                save_hook(self.step, self)
+                self._save(save_hook)
             if self._stop_requested:
                 flush_pending()
                 if save_hook:
-                    save_hook(self.step, self)
+                    self._save(save_hook)
                 break
+
+    def _save(self, save_hook) -> None:
+        """The hook on the primary rank; the others wait until it is done."""
+        if is_primary():
+            save_hook(self.step, self)
+        barrier()
 

@@ -169,6 +169,30 @@ no jax, no TensorFlow. Phases, each fatal on failure:
                  cli.generate_syn_det_train and cli.generate_sixd_train, 4
                  scenes each at 720x540 (PNG and VOC XML, boxes inside the
                  frame, seconds a scene); B3's launches on this path.
+  13. multi-GPU -- the `parallel` layer at the template's full width
+                 (batch 64, filters [128, 256, 512, 512], latent 128), the
+                 ranks spawned by parallel.dryrun.run_ranks (a file://
+                 rendezvous; a rank that fails fails the phase): (1) DDP at
+                 W = 1 over NCCL against the one-process step from the same
+                 seeded model and generator, bit for bit (cuDNN's
+                 deterministic algorithms); (2) dryrun_multigpu(2, "cuda"):
+                 2 ranks (sharing card 0 over gloo on one card, NCCL on
+                 two), 2 steps against the one-process step from the
+                 Trainer's state (phase 7's bounds, parallel.dryrun's
+                 LOSS_RTOL 1e-4, each gradient GRAD_RTOL 2e-2 of its
+                 tensor's largest, the update given the same gradients
+                 UPDATE_TOL 2e-6), the ranks' parameters equal; (3) its row-sharded B3 and B2 (k 8) queries on a
+                 92,232-row f32 and bf16 codebook (8 queries, a row copied
+                 into the other shard) against the replicated kernel
+                 (indices where the margin exceeds MARGIN, values within
+                 VAL_TOL, the tie to the lower row), host ms a call; (4) a
+                 2-rank embed of phase 6's experiment's first 1,024 views
+                 against the one-process rows (EMBED_RANK_TOL, boxes equal);
+                 (5) with several cards, the same at W = the card count
+                 over NCCL, host ms a step at global batch 64 and at 64 a
+                 rank beside one process, and the 92,232-view embed over
+                 every card beside one process in the same call (views/s).
+                 B2 and B3's launches on this path (the sharded calls).
 
 Each phase's seconds are printed after the last. The last lines are the kernels' JSON line, the nvidia-smi line, and
 {"ok": true, "device": {...}}. Exits non-zero, without that line, on any
@@ -214,6 +238,9 @@ MAX_WORSE_SHARE = 0.1
 # the codebook's codes, GPU against CPU, after normalization: cuDNN and the
 # CPU sum the 5x5x512 convolutions in other orders
 EMBED_CPU_TOL = 1e-4
+# phase 13: the codebook built over ranks against the one-process build on
+# the same card (the same batches through the same encoder)
+EMBED_RANK_TOL = 1e-6
 # phase 7, one train step on the card against the CPU port from the same
 # state and batch (TF32 off on both): the loss within TRAIN_LOSS_RTOL; each
 # parameter's gradient within TRAIN_GRAD_RTOL of that tensor's largest
@@ -3184,6 +3211,203 @@ def demo_phase(root, device, template_text, embed_ws=None, eval_scene=None, n_cr
             "sixd_s_per_scene": secs["generate_sixd"] / n_scenes}
 
 
+# ------------------------------------------------------------------ phase 13
+def template_cfg(root, template_text):
+    """The template's TrainConfig (written under `root` and read back)."""
+    from augmentedautoencoder_torch.config import load_train_config
+
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "template.cfg")
+    with open(path, "w") as fh:
+        fh.write(template_text)
+    return load_train_config(path)
+
+
+def ddp_w1_rank(device, cfg, seed, time_steps=0):
+    """Rank function of phase 13 (a group of one rank): one train step of
+    `make_train_step` with the mesh (DDP over the group) and one without
+    it, each from the same seeded model and the same generator, with
+    cuDNN's deterministic algorithms; whether loss, gradients and
+    parameters are equal bit for bit. With `time_steps`, host ms a step
+    of each at the cfg's batch (synchronized, after 3 warm-up steps), with
+    cuDNN's default algorithms, as the Trainer runs."""
+    import torch
+
+    from augmentedautoencoder_torch.codebook import f32_without_tf32
+    from augmentedautoencoder_torch.factory import build_train_model
+    from augmentedautoencoder_torch.parallel import make_mesh
+    from augmentedautoencoder_torch.parallel.dryrun import dryrun_dataset
+    from augmentedautoencoder_torch.training import make_optimizer, make_train_step
+    from augmentedautoencoder_torch.training.trainer import derive_seed
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    ds = dryrun_dataset(cfg, device, n=256, n_bg=64, seed=seed)
+    runs, ms = {}, {}
+    for name, mesh in (("single", None), ("ddp", make_mesh())):
+        model = build_train_model(cfg, device, seed)
+        step = make_train_step(model, make_optimizer(model, cfg), ds, cfg.batch_size, mesh)
+        with f32_without_tf32():
+            torch.backends.cudnn.deterministic = True
+            try:
+                losses = step(torch.Generator(device=device).manual_seed(derive_seed(seed, 0)))
+            finally:
+                torch.backends.cudnn.deterministic = False
+            runs[name] = {"loss": losses["total_loss"].cpu(),
+                          "grads": {k: p.grad.cpu() for k, p in model.named_parameters()},
+                          "params": {k: p.detach().cpu() for k, p in model.named_parameters()}}
+            if time_steps:
+                for s in range(3):
+                    step(torch.Generator(device=device).manual_seed(derive_seed(seed, 100 + s)))
+                sync()
+                t0 = time.perf_counter()
+                for s in range(time_steps):
+                    step(torch.Generator(device=device).manual_seed(derive_seed(seed, 200 + s)))
+                sync()
+                ms[name] = 1e3 * (time.perf_counter() - t0) / time_steps
+    a, b = runs["single"], runs["ddp"]
+    equal = bool(torch.equal(a["loss"], b["loss"])) and all(
+        torch.equal(a[part][k], b[part][k]) for part in ("grads", "params") for k in a[part])
+    diff = max(float((a[part][k] - b[part][k]).abs().max()) for part in ("grads", "params") for k in a[part])
+    return {"equal": equal, "max_diff": diff, "loss": float(a["loss"]), "tensors": len(a["grads"]), "ms": ms}
+
+
+def embed_rank(device, views, batch_size):
+    """Rank function of phase 13: `Codebook.build_embedding` over the data
+    axis of the first `views` views of phase 13's experiment (its workspace
+    in AE_WORKSPACE_PATH): host seconds of the build after the view sphere
+    is computed, the split, and on the primary rank the rows and boxes."""
+    from augmentedautoencoder_torch import factory, parallel
+    from augmentedautoencoder_torch.codebook import Codebook
+
+    cfg, paths, model, _ = factory.restore_experiment("embed", device=device, precision="float32")
+    dataset = factory.build_dataset(paths["dataset_path"], cfg)
+    dataset.viewsphere_for_embedding  # computed once per Dataset (~1 s at 92,232 rows): not a render
+    parallel.barrier()
+    split = {}
+    t0 = time.perf_counter()
+    emb, bbs = Codebook.build_embedding(factory.make_encode_fn(model), dataset.render_embedding_image_batch, views,
+                                        batch_size, progress=False, device=device, profile=split,
+                                        mesh=parallel.make_mesh())
+    out = {"seconds": time.perf_counter() - t0, "split": split}
+    if parallel.is_primary():
+        out.update(emb=emb, bbs=bbs)
+    return out
+
+
+def one_process_embed(device, views, batch_size):
+    """The same build in this process, without a mesh: (seconds, rows, boxes)."""
+    from augmentedautoencoder_torch import factory
+    from augmentedautoencoder_torch.codebook import Codebook
+
+    cfg, paths, model, _ = factory.restore_experiment("embed", device=device, precision="float32")
+    dataset = factory.build_dataset(paths["dataset_path"], cfg)
+    dataset.viewsphere_for_embedding
+    t0 = time.perf_counter()
+    emb, bbs = Codebook.build_embedding(factory.make_encode_fn(model), dataset.render_embedding_image_batch, views,
+                                        batch_size, progress=False, device=device)
+    return time.perf_counter() - t0, emb, bbs
+
+
+def _check_rows(name, got, want):
+    import numpy as np
+
+    dz = float(np.abs(got["emb"] - want[1]).max())
+    if not dz <= EMBED_RANK_TOL or not np.array_equal(got["bbs"], want[2]):
+        raise AssertionError(f"{name}: rows {dz:.2e} off the one-process build (> {EMBED_RANK_TOL}) or boxes differ")
+    return dz
+
+
+def multigpu_phase(root, device, template_text, n_rows=92_232, embed_views=1024, batch_size=256, seed=13,
+                   time_steps=20, query_calls=50, cards=None):
+    """Phase 13: the multi-GPU path on this machine's cards (see the module
+    docstring); step 5 runs over `cards` ranks (default: every card, where
+    there are two or more). Returns its summary; raises on any failed
+    check."""
+    import torch
+
+    from augmentedautoencoder_torch.parallel import dryrun
+
+    cfg = template_cfg(root, template_text)
+    if cards is None:
+        cards = torch.cuda.device_count() if device == "cuda" else 0
+    summary = {"cards": cards}
+
+    # 1. DDP at W = 1 (NCCL on a card) against the one-process step
+    w1 = dryrun.run_ranks(ddp_w1_rank, 1, device, cfg, seed, time_steps if cards >= 2 else 0)[0]
+    summary["w1"] = w1
+    if not w1["equal"]:
+        raise AssertionError(f"DDP at W = 1 differs from the one-process step by up to {w1['max_diff']:.3e}")
+    backend1 = dryrun.rank_devices(1, device)[1]
+    log(f"  DDP at W = 1 over {backend1}: loss, {w1['tensors']} gradients and parameters equal the one-process "
+        f"step bit for bit (batch {cfg.batch_size}, loss {w1['loss']:.6f})")
+
+    # 2-3. two ranks: full-width train steps against the one-process step, and
+    # the row-sharded queries (the main path: each rank counts its sharded
+    # calls only, from 0)
+    t0 = time.perf_counter()
+    dry = dryrun.dryrun_multigpu(2, device, cfg=cfg, steps=2, seed=seed, n_rows=n_rows, query_calls=query_calls)
+    summary["dryrun2"] = dry
+    worst = {k: max(c[k] for c in dry["steps"]) for k in ("loss_rel", "grad_rel", "update_err", "stat_err")}
+    where = "on the CPU" if device == "cpu" else ("sharing card 0" if dry["backend"] == "gloo" else "a card each")
+    log(f"  2 ranks over {dry['backend']} ({where}), batch "
+        f"{cfg.batch_size} ({cfg.batch_size // 2} a rank), {len(dry['steps'])} steps against one process from the "
+        f"same state: loss rel {worst['loss_rel']:.2e} (<= {dryrun.LOSS_RTOL}), gradients {worst['grad_rel']:.2e} of "
+        f"their largest (<= {dryrun.GRAD_RTOL}), update given the same gradients {worst['update_err']:.2e} "
+        f"(<= {dryrun.UPDATE_TOL}); ranks' parameters equal; {time.perf_counter() - t0:.1f} s")
+    launches = {}
+    for dtype, q in dry["queries"].items():
+        for name, n in q["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+        log(f"  sharded queries, {n_rows} rows {dtype} over 2 ranks against the replicated kernel: values within "
+            f"{q['max_abs_err']:.2e}, {q['ties']} index differences inside the margin {MARGIN}, the cross-shard tie "
+            f"to the lower row; host ms a call (rank 0, {query_calls} calls): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in (q["host_ms_per_call"] or {}).items()))
+    summary["launches"] = launches
+    log(f"  main-path launches (the sharded calls, summed over the ranks): {launches}")
+    if device == "cuda" and (launches["cosine_top1_cuda"] < 1 or launches["grouped_codebook_topk"] < 1):
+        raise AssertionError(f"B3 or B2 was not launched by the sharded queries: {launches}")
+
+    # 4. the sharded embed of the first views against the one-process rows
+    embed_experiment(os.path.join(root, "embed"), template_text)
+    want = one_process_embed(device, embed_views, batch_size)
+    got = dryrun.run_ranks(embed_rank, 2, device, embed_views, batch_size)
+    dz = _check_rows("sharded embed", got[0], want)
+    summary["embed2"] = {"max_dz": dz, "seconds": [g["seconds"] for g in got], "one_process_s": want[0]}
+    log(f"  sharded embed of {embed_views} views over 2 ranks: rows within {dz:.2e} of the one-process build, "
+        f"boxes equal; {max(g['seconds'] for g in got):.2f} s (one process {want[0]:.2f} s)")
+
+    # 5. every card, where there are several
+    if cards >= 2:
+        t0 = time.perf_counter()
+        big = dryrun.dryrun_multigpu(cards, device, cfg=cfg, steps=2, seed=seed, n_rows=n_rows,
+                                     time_steps=time_steps, query_calls=query_calls)
+        summary["dryrun_all"] = big
+        ms = big["ms_per_step"]
+        log(f"  {cards} ranks over {big['backend']}: checks as above ({time.perf_counter() - t0:.1f} s); host ms a "
+            f"step ({time_steps} steps, synchronized): global batch {cfg.batch_size} {ms['global']:.3f}, "
+            f"{cfg.batch_size} a rank (global {cfg.batch_size * cards}) {ms['per_rank']:.3f}; one card, one "
+            f"process, batch {cfg.batch_size}: {w1['ms']['single']:.3f} (DDP at W = 1 {w1['ms']['ddp']:.3f})")
+        for dtype, q in big["queries"].items():
+            log(f"  sharded queries {dtype} over {cards} ranks: values within {q['max_abs_err']:.2e}; host ms a "
+                "call: " + ", ".join(f"{k} {v:.3f}" for k, v in q["host_ms_per_call"].items()))
+        views = n_rows
+        one = one_process_embed(device, views, batch_size)
+        got = dryrun.run_ranks(embed_rank, cards, device, views, batch_size)
+        dz = _check_rows(f"sharded embed over {cards} ranks", got[0], one)
+        secs = max(g["seconds"] for g in got)
+        summary["embed_all"] = {"views": views, "seconds": secs, "views_per_s": views / secs,
+                                "one_process_s": one[0], "one_process_views_per_s": views / one[0], "max_dz": dz,
+                                "splits": [g["split"] for g in got]}
+        log(f"  embed of {views} views over {cards} ranks: {secs:.1f} s = {views / secs:.1f} views/s (one process "
+            f"in this call: {one[0]:.1f} s = {views / one[0]:.1f} views/s); rows within {dz:.2e}, boxes equal; "
+            "rank 0's split (s): " + ", ".join(f"{k} {v:.2f}" for k, v in got[0]["split"].items()
+                                               if isinstance(v, float)))
+    return summary
+
+
 def main() -> int:
     start = time.perf_counter()
     seconds = {}
@@ -3239,6 +3463,8 @@ def main() -> int:
             f"({time.perf_counter() - start:.1f} s in)")
         demo = phase("12 demo", demo_phase, os.path.join(root, "demo"), "cuda", template, embed["workspace"],
                      evaluation["scene"])
+        log(f"phase 13: multi-GPU ({torch.cuda.device_count()} card(s); {time.perf_counter() - start:.1f} s in)")
+        multi = phase("13 multi-GPU", multigpu_phase, os.path.join(root, "multi_gpu"), "cuda", template)
     log(f"all phases passed in {time.perf_counter() - start:.1f} s; seconds per phase: "
         + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
 
@@ -3267,7 +3493,8 @@ def main() -> int:
                                  "eval": evaluation["launches"][name],
                                  "dsprites": sprites["launches"][name],
                                  "import": imported["launches"][name],
-                                 "demo": demo["launches"][name]},
+                                 "demo": demo["launches"][name],
+                                 "multi_gpu": multi["launches"][name]},
             "timed": {"ms": "device, whole function from the user's inputs, cold L2",
                       "launch_ms": "device, kernel binding on operands in its input form, cold L2",
                       "call_ms": "host clock per call of the whole function, back to back, warm L2, "

@@ -121,7 +121,7 @@ def _imported_modules(path):
     return names
 
 
-@pytest.mark.parametrize("root", ["augmentedautoencoder_torch", "chip_smoke.py"])
+@pytest.mark.parametrize("root", ["augmentedautoencoder_torch", "chip_smoke.py", "scripts/chip_multi_gpu.py"])
 def test_no_port_module_imports_jax_or_the_jax_package(root):
     """Nor TensorFlow: the card's machine has none."""
     top = os.path.join(REPO, root)
@@ -139,7 +139,7 @@ def test_no_port_module_imports_jax_or_the_jax_package(root):
 
 
 @pytest.mark.parametrize("path", ["chip_smoke.py", "scripts/quality_eval_vsd_torch.py",
-                                  "scripts/train_grad_precision.py"])
+                                  "scripts/train_grad_precision.py", "scripts/chip_multi_gpu.py"])
 def test_port_scripts_read_no_file_of_the_jax_package(path):
     """Their paths into the repo name the port's files (chip_smoke's
     template is the port's own copy); the JAX package appears only in the
