@@ -1,0 +1,159 @@
+"""Run one benchmark cell of the PyTorch port once and print its result.
+
+    python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
+
+from the root of a checkout. The cell is an entry of BENCHMARK.json's
+`workloads`; its configuration, traffic mix, limits and per-layer metric
+readers are found by name under portbench/ (README.md). With --trace 0
+the result carries the cell's end-to-end metrics, with --trace 1 its
+per-layer metrics. The last line of standard output is the result, one
+JSON object; the numbers compared for `correct` and their limits are the
+last lines of standard error and the result's last key.
+
+Without a CUDA device, or with fewer than the cell asks for, it exits
+with code 2 and prints no result; likewise when the JAX package, JAX or
+TensorFlow has been loaded by the time the window closes.
+"""
+
+import time
+
+T_START = time.perf_counter()
+
+import argparse  # noqa: E402
+import importlib  # noqa: E402
+import importlib.util  # noqa: E402
+import json  # noqa: E402
+import math  # noqa: E402
+import os  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BENCH = os.path.join(ROOT, "portbench")
+#: top-level modules that must not be loaded: JAX, its libraries, TensorFlow, the JAX package
+FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "tensorflow", "augmentedautoencoder_tpu")
+
+
+def _load(path: str) -> dict:
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def cell_files(manifest: dict, name: str):
+    """(workload entry, configuration, traffic mix, limits) of cell `name`."""
+    cells = {w["name"]: w for w in manifest["workloads"]}
+    if name not in cells:
+        raise SystemExit(f"no workload {name!r} in BENCHMARK.json: {sorted(cells)}")
+    cell = cells[name]
+    configs = {c["name"]: c for c in manifest["configs"]}
+    config = _load(os.path.join(ROOT, configs[cell["config"]]["file"]))
+    traffic = _load(os.path.join(BENCH, "traffic", cell["traffic"] + ".json"))
+    limits = {k: v["limit"] for k, v in _load(os.path.join(BENCH, "limits", name + ".json")).items()}
+    return cell, config, traffic, limits
+
+
+def metrics_of(manifest: dict, cell: str, trace: bool, out: dict) -> dict:
+    """The cell's end-to-end metrics (untraced) or per-layer metrics (traced),
+    each per-layer one from its reader `metrics/<name>.py`; a reader that
+    finds nothing to read leaves its metric out."""
+    metrics = {}
+    for m in manifest["per_layer" if trace else "end_to_end"]:
+        if cell not in m.get("workloads", [cell]):
+            continue
+        if trace:
+            spec = importlib.util.spec_from_file_location(
+                "portbench.metrics." + m["name"], os.path.join(BENCH, "metrics", m["name"] + ".py"))
+            reader = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(reader)
+            value = reader.read(out["readings"])
+        else:
+            value = out["end_to_end"].get(m["name"])
+        if value is not None:
+            metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
+    return metrics
+
+
+def power_limit_w(index: int):
+    """The card's power limit from nvidia-smi, or None where it cannot be read."""
+    try:
+        proc = subprocess.run(["nvidia-smi", "-i", str(index), "--query-gpu=power.limit",
+                               "--format=csv,noheader,nounits"], capture_output=True, text=True, timeout=30)
+        return float(proc.stdout.strip())
+    except (OSError, ValueError, subprocess.SubprocessError):
+        return None
+
+
+def _finite(x):
+    """`x` with each non-finite float written as a string ("inf", "nan")."""
+    if isinstance(x, dict):
+        return {k: _finite(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_finite(v) for v in x]
+    if isinstance(x, float) and not math.isfinite(x):
+        return repr(x)
+    return x
+
+
+def forbidden_modules():
+    return sorted({n.split(".")[0] for n in list(sys.modules)} & set(FORBIDDEN))
+
+
+def run_cell(manifest, cell, config, traffic, limits, seed, seconds, trace, device, t_start=T_START) -> dict:
+    """One run of `cell` on `device`: the result object (without printing)."""
+    import torch
+
+    kind = importlib.import_module("portbench.kinds." + traffic["kind"])
+    out = kind.run(config, traffic, seed, seconds, trace, device, os.path.join(BENCH, "_data"), limits, t_start)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        index = dev.index or 0
+        record = {"platform": "gpu", "kind": torch.cuda.get_device_name(index), "count": 1,
+                  "memory_peak_bytes": out["memory_peak_bytes"], "power_limit_w": power_limit_w(index)}
+    else:
+        record = {"platform": "cpu", "kind": "cpu", "count": 1, "memory_peak_bytes": 0}
+    result = {"correct": bool(out["correct"]), "attempted": int(out["attempted"]), "failed": int(out["failed"]),
+              "metrics": metrics_of(manifest, cell["name"], trace, out), "device": record}
+    if trace:
+        t = out["readings"].trace
+        record["busy_s"] = t.busy_us() / 1e6
+        record["window_s"] = t.window_us / 1e6
+        result["breakdown"] = kind.breakdown(t)
+    result["notes"] = out["notes"]
+    result["checks"] = out["checks"]
+    return result
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--workload", required=True)
+    parser.add_argument("--seed", type=int, required=True)
+    parser.add_argument("--seconds", type=float, required=True)
+    parser.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    args = parser.parse_args(argv)
+    manifest = _load(os.path.join(ROOT, "BENCHMARK.json"))
+    cell, config, traffic, limits = cell_files(manifest, args.workload)
+
+    # every build and kernel cache of the run inside the checkout, at fixed paths
+    for var, sub in (("TORCH_EXTENSIONS_DIR", "torch_extensions"), ("TRITON_CACHE_DIR", "triton")):
+        os.environ[var] = os.path.join(BENCH, "_cache", sub)
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < cell["chips"]:
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        print(f"portbench: {args.workload} needs {cell['chips']} CUDA device(s), found {n}", file=sys.stderr)
+        return 2
+    result = run_cell(manifest, cell, config, traffic, limits, args.seed, args.seconds, bool(args.trace), "cuda:0")
+    bad = forbidden_modules()
+    if bad:
+        print(f"portbench: loaded in this process: {', '.join(bad)}", file=sys.stderr)
+        return 2
+    for name, c in result["checks"].items():
+        print(f"check {name} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
+    sys.stderr.flush()
+    print(json.dumps(_finite(result), allow_nan=False), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, ROOT)
+    sys.exit(main())
