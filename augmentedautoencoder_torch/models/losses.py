@@ -46,8 +46,10 @@ def bootstrapped_reconstruction_loss(
     else:
         raise ValueError(f"unknown loss: {loss_type}")
     if bootstrap_ratio > 1:
+        from ..training.profiler import span  # the training package imports the models, which import this
+
         k = err.shape[1] // bootstrap_ratio
-        with torch.no_grad():
+        with span("loss.bootstrap"), torch.no_grad():
             mask = (err >= kth_largest(err, k)).to(err.dtype)
         return (err * mask).sum() / (err.shape[0] * k)
     return err.mean()

@@ -90,14 +90,18 @@ def phase_kernels(w: torch.Tensor) -> torch.Tensor:
     """(Cout, Cin, 2, 2, n, n): the four phases' kernels of OIHW `w` (K odd)
     on the common n x n window, each entry the left-to-right sum of its taps
     in the JAX loop's order (a zero tap adds 0.0), in w's dtype, each
-    addition rounded to it. Differentiable in `w`."""
+    addition rounded to it. Differentiable in `w`. Recorded as the span
+    `aae.ops.phase_kernels`, which holds the slot table's copy to w's device."""
+    from ..training.profiler import span  # the training package imports the decoder, which imports this
+
     cout, cin, K, _ = w.shape
-    slots = torch.from_numpy(_tap_slots(K)).to(w.device)
-    flat = torch.cat([w.reshape(cout, cin, K * K), w.new_zeros(cout, cin, 1)], dim=2)
-    kern = w.new_zeros((cout, cin) + tuple(slots.shape[1:]))
-    for s in range(slots.shape[0]):
-        kern = kern + flat[:, :, slots[s]]
-    return kern
+    with span("ops.phase_kernels"):
+        slots = torch.from_numpy(_tap_slots(K)).to(w.device)
+        flat = torch.cat([w.reshape(cout, cin, K * K), w.new_zeros(cout, cin, 1)], dim=2)
+        kern = w.new_zeros((cout, cin) + tuple(slots.shape[1:]))
+        for s in range(slots.shape[0]):
+            kern = kern + flat[:, :, slots[s]]
+        return kern
 
 
 def phase_kernel(w: torch.Tensor, p: int, q: int):

@@ -16,6 +16,10 @@ into pinned host memory, and their values are read 50 logs later, or at a
 save, or when the loop ends, even by an exception. No step waits for the
 device to report a loss.
 
+Each iteration and its parts are `profiler.span`s (listed there): free
+unless a torch.profiler is recording, then on the trace's clock with the
+kernels they launch.
+
 Over several ranks (a process group, one process per card, the data axis
 of a `parallel` mesh) a run computes what one process computes on the
 global batch, up to summation order, as the JAX step over a data mesh
@@ -41,6 +45,7 @@ from ..data.pipeline import DeviceDataset
 from ..models.encoder import sync_batch_norm
 from ..parallel.distributed import barrier, is_primary, world_size
 from ..parallel.mesh import DATA_AXIS, axis_index, axis_size, make_mesh
+from .profiler import span
 from .state import make_optimizer
 
 Losses = Dict[str, torch.Tensor]
@@ -95,12 +100,16 @@ def make_train_step(
         model = data_parallel(model, mesh)
 
     def step(gen: torch.Generator) -> Losses:
-        x, y = dataset.sample_batch(gen, batch_size, shard)
+        with span("train.sample_batch"):
+            x, y = dataset.sample_batch(gen, batch_size, shard)
         model.train()
-        out = model(x, y, train=True, generator=gen, shard=shard)
-        optimizer.zero_grad()
-        out.total_loss.backward()
-        optimizer.step()
+        with span("train.forward"):
+            out = model(x, y, train=True, generator=gen, shard=shard)
+        with span("train.backward"):
+            optimizer.zero_grad()
+            out.total_loss.backward()
+        with span("train.optimizer"):
+            optimizer.step()
         return {k: v.detach() for k, v in out.losses.items()}
 
     return step
@@ -192,13 +201,14 @@ class Trainer:
 
         def flush_pending():
             last = None
-            for step, names, host, done in pending:
-                if done is not None:
-                    done.synchronize()
-                last = dict(zip(names, host.tolist()))
-                if self.metric_writer:
-                    self.metric_writer.write_scalars(step, last)
-            pending.clear()
+            with span("train.flush"):
+                for step, names, host, done in pending:
+                    if done is not None:
+                        done.synchronize()
+                    last = dict(zip(names, host.tolist()))
+                    if self.metric_writer:
+                        self.metric_writer.write_scalars(step, last)
+                pending.clear()
             return last
 
         try:
@@ -216,41 +226,44 @@ class Trainer:
         cuda = self.device.type == "cuda"
         self.step_end_times = []
         for i in range(start, num_iter):
-            losses = self.step_fn(self.generator_for(i))
-            self.step = i + 1
-            self.step_end_times.append(time.perf_counter())
-            # every rank reduces at the same steps, whatever it writes
-            if self.step % log_every == 0 and (self.metric_writer or progress or self.mesh is not None):
-                names = list(losses)
-                vec = torch.stack([losses[k].float() for k in names])
-                if self.mesh is not None:
-                    vec = global_losses(vec, names, self.mesh.get_group(DATA_AXIS))
-                host = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=cuda)
-                host.copy_(vec, non_blocking=cuda)
-                done = None
-                if cuda:
-                    done = torch.cuda.Event()
-                    done.record()
-                pending.append((self.step, names, host, done))
-                if self.step % (log_every * 50) == 0:
-                    host_losses = flush_pending()
-                    if progress:
-                        rate = (self.step - start) / (time.time() - t0)
-                        print(f"[{self.step}/{num_iter}] "
-                              + " ".join(f"{k}={v:.5f}" for k, v in host_losses.items())
-                              + f" ({rate:.1f} it/s)", flush=True)
-            if save_hook and (self.step % self.cfg.save_interval == 0 or self.step == num_iter):
-                flush_pending()
-                self._save(save_hook)
-            if self._stop_requested:
-                flush_pending()
-                if save_hook:
+            with span("train.step"):
+                losses = self.step_fn(self.generator_for(i))
+                self.step = i + 1
+                self.step_end_times.append(time.perf_counter())
+                # every rank reduces at the same steps, whatever it writes
+                if self.step % log_every == 0 and (self.metric_writer or progress or self.mesh is not None):
+                    with span("train.log"):
+                        names = list(losses)
+                        vec = torch.stack([losses[k].float() for k in names])
+                        if self.mesh is not None:
+                            vec = global_losses(vec, names, self.mesh.get_group(DATA_AXIS))
+                        host = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=cuda)
+                        host.copy_(vec, non_blocking=cuda)
+                        done = None
+                        if cuda:
+                            done = torch.cuda.Event()
+                            done.record()
+                        pending.append((self.step, names, host, done))
+                    if self.step % (log_every * 50) == 0:
+                        host_losses = flush_pending()
+                        if progress:
+                            rate = (self.step - start) / (time.time() - t0)
+                            print(f"[{self.step}/{num_iter}] "
+                                  + " ".join(f"{k}={v:.5f}" for k, v in host_losses.items())
+                                  + f" ({rate:.1f} it/s)", flush=True)
+                if save_hook and (self.step % self.cfg.save_interval == 0 or self.step == num_iter):
+                    flush_pending()
                     self._save(save_hook)
-                break
+                if self._stop_requested:
+                    flush_pending()
+                    if save_hook:
+                        self._save(save_hook)
+                    break
 
     def _save(self, save_hook) -> None:
         """The hook on the primary rank; the others wait until it is done."""
-        if is_primary():
-            save_hook(self.step, self)
-        barrier()
+        with span("train.save"):
+            if is_primary():
+                save_hook(self.step, self)
+            barrier()
 
