@@ -27,6 +27,8 @@ weight to the compute dtype first, as the JAX `_UpConv` does). In bf16 the
 phase kernels are sums of bf16 taps, each addition rounded, in the JAX
 loop's order, and the bias is added to the rounded bf16 output, as the JAX
 module adds it after the interleave (`conv2d`; the same sums before it).
+The phase kernels' gradient sums each tap's four phase entries in f32,
+rounded once to bf16 in bf16.
 
 The convolutions are cuDNN's (`F.conv2d`): the JAX module is XLA code, not
 a Pallas kernel. `upsample2x_conv_plain` is the unfused form (upsample,
@@ -86,22 +88,70 @@ def _tap_slots(K: int) -> np.ndarray:
     return slots
 
 
+@lru_cache(maxsize=None)
+def _tap_map(K: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`_tap_slots(K)` on `device`, and its inverse (4, K * K): for phase
+    p * 2 + q, the flat (u * n + v) window entry that tap d * K + e lands
+    in (every tap lands in exactly one entry of each phase). Built once per
+    (K, device), so a call copies nothing to the device and waits for
+    nothing."""
+    slots = _tap_slots(K)
+    n = slots.shape[-1]
+    inv = np.full((4, K * K), -1, np.int64)
+    for s, p, q, u, v in zip(*np.nonzero(slots < K * K)):
+        tap = slots[s, p, q, u, v]
+        assert inv[p * 2 + q, tap] < 0, (K, p, q, tap)
+        inv[p * 2 + q, tap] = u * n + v
+    assert (inv >= 0).all(), K
+    return torch.from_numpy(slots).to(device), torch.from_numpy(inv).to(device)
+
+
+class _PhaseKernels(torch.autograd.Function):
+    """`phase_kernels` as one autograd node. The backward gathers each
+    tap's four phase entries through the inverse map and adds them in phase
+    order in at least f32, rounding once to w's dtype: autograd would make
+    the forward's gathers a scatter (a sort and an accumulating index_put)."""
+
+    @staticmethod
+    def forward(ctx, w):
+        cout, cin, K, _ = w.shape
+        slots, inv = _tap_map(K, w.device)
+        ctx.inv, ctx.w_shape = inv, w.shape
+        S, window = slots.shape[0], tuple(slots.shape[1:])
+        # (S, Cout, Cin, 4 n n): each slot's taps contiguous, so each addition is a dense one
+        flat = F.pad(w.reshape(cout, cin, K * K), (0, 1)).expand(S, cout, cin, K * K + 1)
+        taps = flat.gather(3, slots.view(S, 1, 1, -1).expand(S, cout, cin, -1))
+        kern = w.new_zeros((cout, cin) + window)
+        for s in range(S):
+            kern = kern + taps[s].view((cout, cin) + window)
+        return kern
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        cout, cin, K, _ = ctx.w_shape
+        # (4, Cout, Cin, K K): each phase's entries of every tap, contiguous
+        phases = grad.reshape(cout, cin, 4, -1).permute(2, 0, 1, 3)
+        g = phases.gather(3, ctx.inv.view(4, 1, 1, K * K).expand(4, cout, cin, K * K))
+        acc = g[0].to(torch.promote_types(grad.dtype, torch.float32))
+        for i in range(1, 4):
+            acc = acc + g[i]
+        return acc.to(grad.dtype).view(cout, cin, K, K)
+
+
 def phase_kernels(w: torch.Tensor) -> torch.Tensor:
     """(Cout, Cin, 2, 2, n, n): the four phases' kernels of OIHW `w` (K odd)
     on the common n x n window, each entry the left-to-right sum of its taps
     in the JAX loop's order (a zero tap adds 0.0), in w's dtype, each
-    addition rounded to it. Differentiable in `w`. Recorded as the span
-    `aae.ops.phase_kernels`, which holds the slot table's copy to w's device."""
+    addition rounded to it. Differentiable in `w` (`_PhaseKernels`: the
+    gradient of each tap is its four phase entries summed in at least f32,
+    rounded once). Recorded as the span `aae.ops.phase_kernels`, which holds
+    the gather and the additions; the tap map is on the device after a
+    (K, device)'s first call, so the span neither copies nor waits."""
     from ..training.profiler import span  # the training package imports the decoder, which imports this
 
-    cout, cin, K, _ = w.shape
     with span("ops.phase_kernels"):
-        slots = torch.from_numpy(_tap_slots(K)).to(w.device)
-        flat = torch.cat([w.reshape(cout, cin, K * K), w.new_zeros(cout, cin, 1)], dim=2)
-        kern = w.new_zeros((cout, cin) + tuple(slots.shape[1:]))
-        for s in range(slots.shape[0]):
-            kern = kern + flat[:, :, slots[s]]
-        return kern
+        return _PhaseKernels.apply(w)
 
 
 def phase_kernel(w: torch.Tensor, p: int, q: int):

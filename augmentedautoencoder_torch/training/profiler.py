@@ -19,7 +19,8 @@ N-th `aae.train.step` of a trace is the N-th step traced):
   train.log            stacking the logged losses, their pinned copy and event
   train.flush          reading pending losses back (waits on the device)
   train.save           the save hook and the ranks' barrier
-  ops.phase_kernels    the fused 2x convolution's phase kernels (forward)
+  ops.phase_kernels    the fused 2x convolution's phase kernels (forward: a
+                       gather and the ordered additions; no copy, no wait)
   loss.bootstrap       the bootstrapped loss's k-th value and mask (forward)
 """
 

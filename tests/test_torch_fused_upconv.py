@@ -1,7 +1,11 @@
 """The port's fused 2x upsample + conv (augmentedautoencoder_torch/ops/fused_upconv.py)
 against the JAX package's and against the port's unfused form: the forward
 and the gradients of x, w and b within 1e-5 of each tensor's largest |value|,
-the phase kernels bit for bit."""
+the phase kernels bit for bit. The phase kernels' autograd Function against
+the loop of gathers it replaced (`_phase_kernels_autograd`, differentiated
+by autograd): the forward bit for bit, the gradient of w within 1e-6 of its
+largest |value| in f32 and OP_RTOL in bf16, where it also lies no farther
+than the loop's from the exact sum."""
 
 from __future__ import annotations
 
@@ -15,6 +19,8 @@ from augmentedautoencoder_tpu.ops import fused_upconv as jax_fu
 from augmentedautoencoder_torch.ops import fused_upconv as fu
 
 REL = 1e-5
+GRAD_RTOL_F32 = 1e-6
+OP_RTOL = 2.0 ** -7  # tests/test_torch_bf16_train.py: one op's rounding of its bf16 output
 
 
 def _inputs(K, H, W, bias, cin=6, cout=5, batch=2, seed=0):
@@ -115,3 +121,75 @@ def test_decoder_routes_every_exact_2x_step_through_the_fused_form(monkeypatch):
                         kernel_size=5, strides=(2, 2, 2))
     assert model(torch.randn(2, 4)).shape == (2, 32, 32, 3)
     assert calls == [(4, 4), (8, 8), (16, 16)]
+
+
+def _phase_kernels_autograd(w):
+    """The phase kernels as a loop of S gathers and additions, each
+    differentiated by autograd (a scatter-add of each gather's gradient)."""
+    cout, cin, K, _ = w.shape
+    slots = torch.from_numpy(fu._tap_slots(K))
+    flat = torch.cat([w.reshape(cout, cin, K * K), w.new_zeros(cout, cin, 1)], dim=2)
+    kern = w.new_zeros((cout, cin) + tuple(slots.shape[1:]))
+    for s in range(slots.shape[0]):
+        kern = kern + flat[:, :, slots[s]]
+    return kern
+
+
+PK_CASES = [(K, dtype, co_ci) for K in (3, 5) for dtype in (torch.float32, torch.bfloat16)
+            for co_ci in ((1, 1), (5, 6), (16, 8))]
+PK_IDS = [f"K{K}-{str(dtype)[6:]}-{co}x{ci}" for K, dtype, (co, ci) in PK_CASES]
+
+
+def _pk_inputs(K, dtype, co_ci, seed=0):
+    gen = torch.Generator().manual_seed(seed + 100 * K + co_ci[0] * co_ci[1])
+    w = torch.randn(co_ci + (K, K), generator=gen).to(dtype)
+    g = torch.randn(co_ci + tuple(fu._tap_slots(K).shape[1:]), generator=gen).to(dtype)
+    return w, g
+
+
+def _w_grad(fn, w, g):
+    ws = w.clone().requires_grad_()
+    fn(ws).backward(g)
+    return ws.grad
+
+
+@pytest.mark.parametrize("K,dtype,co_ci", PK_CASES, ids=PK_IDS)
+def test_phase_kernels_forward_equals_the_loop_bit_for_bit(K, dtype, co_ci):
+    w, _ = _pk_inputs(K, dtype, co_ci)
+    got, want = fu.phase_kernels(w), _phase_kernels_autograd(w)
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       want.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+
+
+@pytest.mark.parametrize("K,dtype,co_ci", PK_CASES, ids=PK_IDS)
+def test_phase_kernels_grad_matches_the_loop(K, dtype, co_ci):
+    """The gradient of w against the loop's autograd gradient; in bf16
+    (four phase entries summed in f32, rounded once, where the loop rounds
+    after each addition) also element by element no farther than the loop's
+    from the exact (f64) sum of the same bf16 entries."""
+    w, g = _pk_inputs(K, dtype, co_ci, seed=1)
+    got, want = _w_grad(fu.phase_kernels, w, g), _w_grad(_phase_kernels_autograd, w, g)
+    assert got.dtype == want.dtype == dtype
+    got, want = got.double(), want.double()
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= (GRAD_RTOL_F32 if dtype == torch.float32 else OP_RTOL), err
+    if dtype == torch.bfloat16:
+        exact = _w_grad(_phase_kernels_autograd, w.double(), g.double())
+        assert ((got - exact).abs() <= (want - exact).abs()).all()
+
+
+@pytest.mark.parametrize("K", [1, 3, 5, 7])
+def test_phase_kernels_gradcheck_f64(K):
+    w = torch.randn(3, 2, K, K, dtype=torch.float64, generator=torch.Generator().manual_seed(K),
+                    requires_grad=True)
+    assert torch.autograd.gradcheck(fu.phase_kernels, (w,))
+
+
+def test_phase_kernels_reuse_the_cached_tap_map():
+    w = torch.randn(2, 3, 5, 5)
+    fu.phase_kernels(w)
+    before = fu._tap_map.cache_info()
+    fu.phase_kernels(w)
+    after = fu._tap_map.cache_info()
+    assert after.hits == before.hits + 1 and after.misses == before.misses
