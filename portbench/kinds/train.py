@@ -96,13 +96,10 @@ def ensure_mesh(config: dict, data_dir: str) -> str:
     return path
 
 
-def build(config: dict, traffic: dict, seed: int, device, data_dir: str, pool=None):
-    """(trainer, recorder, pool arrays): the program set up for the run, its
-    weights those of `model.make_weights` from `seed`; `pool`, the arrays of
-    an earlier call, is used as it is."""
+def parse(config: dict, traffic: dict, data_dir: str):
+    """(cfg, pool directory): the configuration as the port parses it, at
+    the traffic's batch, its mesh written once."""
     from augmentedautoencoder_torch.config import load_train_config
-    from augmentedautoencoder_torch.data.pipeline import DeviceDataset
-    from augmentedautoencoder_torch.training import Trainer
 
     data_dir = pool_dir(config, data_dir)
     mesh = ensure_mesh(config, data_dir)
@@ -110,7 +107,17 @@ def build(config: dict, traffic: dict, seed: int, device, data_dir: str, pool=No
     cp.read_string(cfg_text(config["cfg"], MODEL_PATH=mesh, BATCH_SIZE=traffic["batch_size"]))
     # the CODE's np.random.rand() is drawn when it is parsed
     np.random.seed(config["pool"]["parse_seed"])
-    cfg = load_train_config(cp)
+    return load_train_config(cp), data_dir
+
+
+def build(config: dict, traffic: dict, seed: int, device, data_dir: str, pool=None):
+    """(trainer, recorder, pool arrays): the program set up for the run, its
+    weights those of `model.make_weights` from `seed`; `pool`, the arrays of
+    an earlier call, is used as it is."""
+    from augmentedautoencoder_torch.data.pipeline import DeviceDataset
+    from augmentedautoencoder_torch.training import Trainer
+
+    cfg, data_dir = parse(config, traffic, data_dir)
     pool = pool or load_pool(config, cfg, data_dir)
     train_x, mask_x, train_y, n_obj, bg = pool
     ds = DeviceDataset(cfg, train_x, mask_x, train_y, bg, n_obj, device=device)

@@ -9,6 +9,9 @@ FLOPS = {
     "fp8": 1979e12,
 }
 HBM_BYTES_PER_S = 3.35e12
+#: NVLink of one H100 SXM in one direction (900 GB/s both ways): every
+#: reduced byte of an all-reduce has to arrive at each rank over it
+NVLINK_BYTES_PER_S = 450e9
 
 
 def least_seconds(ops) -> float:

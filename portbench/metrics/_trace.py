@@ -19,6 +19,8 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 SPAN_PREFIX = "portbench."
 BACKWARD_PREFIX = "autograd::engine::evaluate_function"
+#: the names of communication kernels (NCCL's) start so
+COMM_PREFIX = "nccl"
 #: host calls that wait for the device
 WAIT_WORDS = ("Synchronize", "EventQuery")
 
@@ -36,12 +38,31 @@ def union(intervals: Iterable[Interval]) -> List[Interval]:
     return [(s, e) for s, e in out]
 
 
+def intersection(a: List[Interval], b: List[Interval]) -> List[Interval]:
+    """The intersection of two sorted lists of disjoint intervals."""
+    out, i, j = [], 0, 0
+    while i < len(a) and j < len(b):
+        s, e = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        if s < e:
+            out.append((s, e))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return out
+
+
 def clip(intervals: Iterable[Interval], lo: float, hi: float) -> List[Interval]:
     return [(max(s, lo), min(e, hi)) for s, e in intervals if e > lo and s < hi]
 
 
 def total(intervals: Iterable[Interval]) -> float:
     return sum(e - s for s, e in intervals)
+
+
+def is_comm(op) -> bool:
+    """A communication kernel: NCCL's, which the collectives launch."""
+    return op.name.startswith(COMM_PREFIX)
 
 
 class DeviceOp:

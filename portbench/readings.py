@@ -19,3 +19,6 @@ class Readings:
     precision: str = "float32"
     #: one step's convolutions and matmuls (`metrics._flops.step_ops`)
     step_ops: List[Dict] = field(default_factory=list)
+    #: bytes of one step's gradients, which a multi-rank step all-reduces
+    #: (`metrics._params.grad_bytes`); 0 on one card
+    grad_bytes: int = 0
