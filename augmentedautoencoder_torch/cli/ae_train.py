@@ -10,6 +10,12 @@ SAVE_INTERVAL (reference auto_pose/ae/ae_train.py). `-gen` only renders
 the training set; `-d` writes a grid of one augmented batch instead of
 training. SIGINT asks for a gentle stop: finish the step, save, exit.
 
+A MODEL_PATH that lists n_o meshes (`['a.ply', 'b.ply', ...]`) trains one
+multi-path model (models/aae.py): each object's training set is rendered
+(or loaded from its own cache) as a one-object cfg of its mesh renders it,
+object 0 from the run's seed and object o from the seed (seed, o), and a
+step draws BATCH_SIZE / n_o rows of each (data/pipeline.py), on one device.
+
 MODEL dsprites trains on the heart images of the .npz at MODEL_PATH
 (`data.dsprites`), with no backgrounds and empty masks, as the JAX package
 does; it renders nothing, so `-gen` only says so.
@@ -64,9 +70,10 @@ def load_device_dataset(cfg, paths, device, seed: int, gen_only: bool = False) -
     """Render or load the training set and the backgrounds (one
     np.random.RandomState(seed) for both, in the JAX package's order), or
     load the dsprites images, and put them on `device`; None with
-    `gen_only`."""
+    `gen_only`. A multi-path cfg renders each object after the first from
+    a RandomState of (seed, object) and stacks the objects' sets."""
     rng = np.random.RandomState(seed)
-    dataset = factory.build_dataset(paths["dataset_path"], cfg)
+    dataset = factory.build_dataset(paths["dataset_path"], cfg.for_object(0))
     if cfg.model == "dsprites":
         if gen_only:
             return None
@@ -76,8 +83,15 @@ def load_device_dataset(cfg, paths, device, seed: int, gen_only: bool = False) -
         dataset.bg_imgs = np.zeros((1,) + dataset.train_x.shape[1:], np.uint8)
     else:
         dataset.get_training_images(paths["dataset_path"], rng)
+        objects = [dataset]
+        for o in range(1, cfg.n_objects):
+            objects.append(factory.build_dataset(paths["dataset_path"], cfg.for_object(o)))
+            objects[-1].get_training_images(paths["dataset_path"], np.random.RandomState([seed, o]))
         if gen_only:
             return None
+        if len(objects) > 1:
+            for key in ("train_x", "mask_x", "train_y", "noof_obj_pixels"):
+                setattr(dataset, key, np.concatenate([getattr(d, key) for d in objects]))
         dataset.load_bg_images(paths["dataset_path"], rng)
     occlusion_masks = None
     if cfg.realistic_occlusion:
@@ -89,7 +103,7 @@ def load_device_dataset(cfg, paths, device, seed: int, gen_only: bool = False) -
             occlusion_masks = synthesize_mask_bank(1000, (cfg.h, cfg.w))
     return DeviceDataset(
         cfg, dataset.train_x, dataset.mask_x, dataset.train_y, dataset.bg_imgs,
-        dataset.noof_obj_pixels, occlusion_masks=occlusion_masks, device=device,
+        dataset.noof_obj_pixels, occlusion_masks=occlusion_masks, device=device, n_objects=cfg.n_objects,
     )
 
 
@@ -146,8 +160,10 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> Optional[Trainer]
 
     def save_hook(step: int, tr: Trainer) -> None:
         ckpt.save_train_state(step, tr.model, tr.optimizer)
-        # training-health figure: input | reconstruction | target
-        x, y = device_ds.sample_batch(torch.Generator(device=device).manual_seed(step), 16)
+        # training-health figure: input | reconstruction | target, 16 rows
+        # (a multiple of the objects, at least one of each)
+        rows = cfg.n_objects * max(1, 16 // cfg.n_objects)
+        x, y = device_ds.sample_batch(torch.Generator(device=device).manual_seed(step), rows)
         recon, _ = recon_fn(x, y)
         save_grid(os.path.join(paths["train_fig_dir"], f"training_images_{step}.png"),
                   [x.cpu().numpy(), recon.cpu().numpy(), y.cpu().numpy()])

@@ -106,6 +106,34 @@ class TrainConfig:
         return (self.h, self.w, self.c)
 
     @property
+    def model_paths(self) -> List[str]:
+        """The meshes of `[Paths] MODEL_PATH`: one path, or a list of paths
+        (`['a.ply', 'b.ply', ...]`), one object each. A list of n_o > 1
+        meshes trains one multi-path model: a shared encoder and a decoder
+        for each object (Sundermeyer et al., CVPR 2020)."""
+        if self.model_path.lstrip().startswith("["):
+            return [str(p) for p in safe_eval(self.model_path)]
+        return [self.model_path]
+
+    @property
+    def n_objects(self) -> int:
+        return len(self.model_paths)
+
+    def for_object(self, index: int) -> "TrainConfig":
+        """This configuration for object `index` of MODEL_PATH alone (itself
+        where there is one object): its mesh as MODEL_PATH, so its renders
+        are cached under the key a one-object cfg of that mesh has."""
+        if self.n_objects == 1:
+            return self
+        path = self.model_paths[index]
+        raw = None
+        if self._raw is not None:
+            raw = configparser.ConfigParser(inline_comment_prefixes=("#", ";"))
+            raw.read_dict({s: dict(self._raw.items(s, raw=True)) for s in self._raw.sections()})
+            raw.set("Paths", "MODEL_PATH", path)
+        return dataclasses.replace(self, model_path=path, _raw=raw)
+
+    @property
     def K(self) -> np.ndarray:
         return np.asarray(self.k, dtype=np.float64).reshape(3, 3)
 
@@ -263,4 +291,9 @@ def load_train_config(path_or_parser) -> TrainConfig:
     cfg.num_threads = _get(cp, "Queue", "NUM_THREADS", cfg.num_threads)
     cfg.queue_size = _get(cp, "Queue", "QUEUE_SIZE", cfg.queue_size)
 
+    if cfg.batch_size % cfg.n_objects:
+        raise ValueError(
+            f"BATCH_SIZE {cfg.batch_size} does not divide by the {cfg.n_objects} objects of MODEL_PATH: "
+            "a multi-path step draws BATCH_SIZE / n_objects rows of each object"
+        )
     return cfg

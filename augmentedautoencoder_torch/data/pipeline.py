@@ -14,6 +14,12 @@ B)` draws every index, shift and mask parameter as tensors from a
 `torch.Generator` on the device, and `compose_batch(draws)` computes the
 batch from them deterministically, so the JAX package's draws can be fed
 to it and compared.
+
+A multi-path model's pool holds every object's renders, object after
+object, each NOOF_TRAINING_IMGS rows (`n_objects`), and a batch is
+stratified: B / n_o rows of each object's pool, in object order, drawn at
+once for every object (`_stratified`); the backgrounds, occlusion,
+clutter and augmentation draws are the one-object batch's, row by row.
 """
 
 from __future__ import annotations
@@ -130,9 +136,13 @@ class DeviceDataset:
         noof_obj_pixels: Optional[np.ndarray] = None,
         occlusion_masks: Optional[np.ndarray] = None,
         device="cpu",
+        n_objects: int = 1,
     ):
         if len(bg_imgs) == 0:
             raise ValueError("no background images: check BACKGROUND_IMAGES_GLOB and NOOF_BG_IMGS")
+        if len(train_x) % n_objects:
+            raise ValueError(f"{len(train_x)} training rows do not split into {n_objects} equal object pools")
+        self.n_objects = n_objects
         self.cfg = cfg
         self.device = torch.device(device)
         if noof_obj_pixels is None:
@@ -160,12 +170,29 @@ class DeviceDataset:
             return torch.randint(0, n, (b,), generator=gen, device=self.device)
         return torch.randperm(n, generator=gen, device=self.device)[:b]
 
+    def _stratified(self, gen, b: int) -> torch.Tensor:
+        """b // n_objects indices into each object's pool, in object order:
+        without replacement (the first of a random order of the pool: the
+        sort of one uniform key a row), or with it when the pool is
+        smaller; as rows of the whole pool."""
+        n_o = self.n_objects
+        if b % n_o:
+            raise ValueError(f"a batch of {b} does not divide by the {n_o} objects of a multi-path pool")
+        per, rows = b // n_o, self.train_x.shape[0] // n_o
+        if rows < per:
+            idcs = torch.randint(0, rows, (n_o, per), generator=gen, device=self.device)
+        else:
+            keys = torch.rand((n_o, rows), generator=gen, device=self.device)
+            idcs = torch.argsort(keys, dim=1, stable=True)[:, :per]
+        return (idcs + rows * torch.arange(n_o, device=self.device)[:, None]).reshape(b)
+
     def draw_batch(self, gen: torch.Generator, batch_size: int) -> Dict:
         """Every random number of one batch, as tensors on the device."""
         cfg, dev, b = self.cfg, self.device, batch_size
         n = self.train_x.shape[0]
         h, w, c = self.train_x.shape[1:]
-        draws: Dict = {"idcs": self._choice(gen, n, b), "bg_idcs": self._choice(gen, self.bg_imgs.shape[0], b)}
+        idcs = self._choice(gen, n, b) if self.n_objects == 1 else self._stratified(gen, b)
+        draws: Dict = {"idcs": idcs, "bg_idcs": self._choice(gen, self.bg_imgs.shape[0], b)}
         r = OCCLUSION_RETRIES
         if cfg.realistic_occlusion and self.occlusion_masks is not None:
             sign = 2.0 * torch.randint(0, 2, (r, b, 2), generator=gen, device=dev) - 1.0

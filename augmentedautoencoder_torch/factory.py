@@ -141,8 +141,15 @@ def restore_experiment(
     device: Optional[Device] = None,
     precision: Optional[str] = None,
 ):
-    """(cfg, paths, model in eval mode on `device`, checkpoint payload)."""
+    """(cfg, paths, model in eval mode on `device`, checkpoint payload). A
+    multi-path experiment (MODEL_PATH of several meshes) raises: embedding
+    its objects' codebooks and serving it are not supported yet."""
     cfg, paths = load_experiment_config(experiment_name, experiment_group)
+    if cfg.n_objects > 1:
+        raise ValueError(
+            f"{experiment_name} is a multi-path model of {cfg.n_objects} objects: embedding, evaluating and "
+            "serving one are not supported yet (each object needs its own codebook from the shared encoder)"
+        )
     payload = CheckpointManager(paths["checkpoint_dir"]).restore(at_step)
     if payload is None:
         raise FileNotFoundError(

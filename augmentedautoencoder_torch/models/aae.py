@@ -15,6 +15,15 @@ Serving needs only the encoder, so `AAE(...)` builds the encoder alone and
 its state dict is the encoder's, the one every serving checkpoint holds.
 `AAE(..., decoder=True)` (or `from_config(cfg, train=True)`) adds the
 decoder that training needs.
+
+With `n_objects` > 1 (a MODEL_PATH of n_o meshes) the model is the
+multi-path encoder (Sundermeyer et al., CVPR 2020): the one encoder shared
+by every object and a `DecoderBank` of one decoder an object. A batch is
+in object order, b_o = B / n_o rows of each object, row i of object o
+decoded by object o's decoder, and the loss is the mean over all rows of
+each row's bootstrapped error (with equal rows an object, the mean of the
+objects' losses). The variants VARIATIONAL, AUXILIARY_MASK and
+BATCH_NORMALIZATION are the one-object model's only.
 """
 
 from __future__ import annotations
@@ -25,7 +34,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from .decoder import Decoder
+from .decoder import Decoder, DecoderBank
 from .encoder import Encoder
 from .losses import bootstrapped_reconstruction_loss, kl_divergence_loss, mask_loss, norm_regularizer
 
@@ -65,10 +74,17 @@ class AAE(nn.Module):
         bootstrap_ratio: int = 4,
         norm_regularize: float = 0.0,
         topk_mode: str = "exact",
+        n_objects: int = 1,
     ):
         super().__init__()
         if precision not in _DTYPES:
             raise ValueError(f"unknown precision: {precision!r}")
+        if n_objects > 1 and (variational > 0 or auxiliary_mask or batch_norm):
+            raise ValueError(
+                "a multi-path model (MODEL_PATH of several meshes) has no VARIATIONAL, AUXILIARY_MASK or "
+                "BATCH_NORMALIZATION variant yet: train it with all three off"
+            )
+        self.n_objects = n_objects
         self.variational = variational
         self.auxiliary_mask = auxiliary_mask
         self.loss_type = loss_type
@@ -85,8 +101,20 @@ class AAE(nn.Module):
             variational=variational > 0,
             compute_dtype=_DTYPES[precision],
         )
-        self.decoder = (
-            Decoder(
+        if not decoder:
+            self.decoder = None
+        elif n_objects > 1:
+            self.decoder = DecoderBank(
+                n_objects,
+                output_shape=tuple(input_shape),
+                latent_space_size=latent_space_size,
+                num_filters=tuple(reversed(num_filters)),
+                kernel_size=kernel_size_decoder,
+                strides=tuple(reversed(strides)),
+                compute_dtype=_DTYPES[precision],
+            )
+        else:
+            self.decoder = Decoder(
                 output_shape=tuple(input_shape),
                 latent_space_size=latent_space_size,
                 num_filters=tuple(reversed(num_filters)),
@@ -96,9 +124,6 @@ class AAE(nn.Module):
                 auxiliary_mask=auxiliary_mask,
                 compute_dtype=_DTYPES[precision],
             )
-            if decoder
-            else None
-        )
 
     @classmethod
     def from_config(cls, cfg, precision: Optional[str] = None, train: bool = False) -> "AAE":
@@ -120,6 +145,8 @@ class AAE(nn.Module):
             bootstrap_ratio=cfg.bootstrap_ratio,
             norm_regularize=cfg.norm_regularize,
             topk_mode=cfg.topk_mode,
+            # the JAX package's TrainConfig, which tests hand in too, has one object
+            n_objects=getattr(cfg, "n_objects", 1),
         )
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:

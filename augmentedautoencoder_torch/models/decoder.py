@@ -112,3 +112,85 @@ def resize_conv(conv: nn.Conv2d, x: torch.Tensor, size: Tuple[int, int]) -> torc
     if tuple(size) == (2 * h, 2 * w):
         return upsample2x_conv(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype))
     return conv_in(conv, nn_resize(x, size))
+
+
+def _stacked(n_objects: int, *shape: int) -> nn.Module:
+    """A module holding `weight` (n_objects, *shape) and `bias` (n_objects,
+    shape[0]): one layer's parameters for every object, under the names a
+    `Decoder` layer gives them."""
+    layer = nn.Module()
+    layer.weight = nn.Parameter(torch.empty(n_objects, *shape))
+    layer.bias = nn.Parameter(torch.empty(n_objects, shape[0]))
+    return layer
+
+
+class DecoderBank(nn.Module):
+    """The decoders of a multi-path model (Sundermeyer et al., "Multi-path
+    Learning for Object Pose Estimation Across Domains", CVPR 2020): one
+    `Decoder` for each of `n_objects` objects, every layer's parameters
+    stacked on a leading object axis under the Decoder's names
+    (`dense.weight` (n_o, h0 * w0 * C0, latent), `convs.<i>.weight` (n_o,
+    Cout, Cin, K, K), `reconstruction.weight`, biases (n_o, C)).
+
+    `forward(z)` takes a batch in object order, (n_o * b_o, latent) with
+    object o's rows at o * b_o to (o + 1) * b_o - 1, and decodes each
+    object's rows by that object's decoder, as the Decoder computes it in
+    the same precision: the dense layer as one batched matmul, each 2x step
+    and the head as one grouped phase-kernel convolution whose groups are
+    the objects (`upsample2x_conv` on the stack). No Python loop over the
+    objects. The bank has every step exactly 2x the last map, and no
+    BatchNorm or mask head. Recorded as the span `aae.ops.decoder_bank`."""
+
+    def __init__(
+        self,
+        n_objects: int,
+        output_shape: Tuple[int, int, int] = (128, 128, 3),
+        latent_space_size: int = 128,
+        num_filters: Sequence[int] = (512, 512, 256, 128),  # already reversed
+        kernel_size: int = 5,
+        strides: Sequence[int] = (2, 2, 2, 2),  # already reversed
+        compute_dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        h, w, c = output_shape
+        if any(s != 2 for s in strides) or h % 2 ** len(strides) or w % 2 ** len(strides):
+            raise ValueError(f"a decoder bank takes exact 2x steps: STRIDES {list(strides)} on {h}x{w}")
+        self.n_objects = n_objects
+        self.compute_dtype = compute_dtype
+        h0, w0 = h // 2 ** len(strides), w // 2 ** len(strides)
+        self.first = (h0, w0, num_filters[0])
+        self.dense = _stacked(n_objects, h0 * w0 * num_filters[0], latent_space_size)
+        self.convs = nn.ModuleList(
+            _stacked(n_objects, cout, cin, kernel_size, kernel_size)
+            for cin, cout in zip(num_filters[:-1], num_filters[1:])
+        )
+        self.reconstruction = _stacked(n_objects, c, num_filters[-1], kernel_size, kernel_size)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        from ..training.profiler import span  # the training package imports the models
+
+        n = self.n_objects
+        h0, w0, c0 = self.first
+        with span("ops.decoder_bank"):
+            zo = z.to(self.compute_dtype).view(n, -1, z.shape[-1])
+            b = zo.shape[1]
+            x = F.relu(linear_bank(self.dense, zo))
+            # (b, n * C0, h0, w0): object o's map is the o-th group of channels
+            x = x.view(n, b, h0, w0, c0).permute(1, 0, 4, 2, 3).reshape(b, n * c0, h0, w0)
+            for conv in self.convs:
+                x = F.relu(upsample2x_conv(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype)))
+            x = x.to(head_dtype(self.compute_dtype))
+            head = self.reconstruction
+            x = torch.sigmoid(upsample2x_conv(x, head.weight.to(x.dtype), head.bias.to(x.dtype)))
+            hh, ww = x.shape[2:]
+            return x.view(b, n, -1, hh, ww).permute(1, 0, 3, 4, 2).reshape(n * b, hh, ww, -1)
+
+
+def linear_bank(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """x (n, b, in) through each object's dense layer of a bank, weight (n,
+    out, in) and bias (n, out) cast to x's dtype, as `linear` computes one:
+    in bf16 the bias added to the rounded product."""
+    w, bias = layer.weight.to(x.dtype), layer.bias.to(x.dtype).unsqueeze(1)
+    if x.dtype != torch.bfloat16:
+        return torch.baddbmm(bias, x, w.transpose(1, 2))
+    return torch.bmm(x, w.transpose(1, 2)) + bias

@@ -37,6 +37,7 @@ then the KxK conv), kept for the tests and the card's check.
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 from typing import List, Optional, Tuple
 
@@ -110,11 +111,15 @@ class _PhaseKernels(torch.autograd.Function):
     """`phase_kernels` as one autograd node. The backward gathers each
     tap's four phase entries through the inverse map and adds them in phase
     order in at least f32, rounding once to w's dtype: autograd would make
-    the forward's gathers a scatter (a sort and an accumulating index_put)."""
+    the forward's gathers a scatter (a sort and an accumulating index_put).
+    Leading axes of `w` before (Cout, Cin, K, K), such as a decoder bank's
+    object axis, are folded into Cout: each (cout, cin) entry's sums are
+    its own, so a stack is one gather and one chain of additions."""
 
     @staticmethod
     def forward(ctx, w):
-        cout, cin, K, _ = w.shape
+        *lead, cin, K, _ = w.shape
+        cout = math.prod(lead)
         slots, inv = _tap_map(K, w.device)
         ctx.inv, ctx.w_shape = inv, w.shape
         S, window = slots.shape[0], tuple(slots.shape[1:])
@@ -124,23 +129,25 @@ class _PhaseKernels(torch.autograd.Function):
         kern = w.new_zeros((cout, cin) + window)
         for s in range(S):
             kern = kern + taps[s].view((cout, cin) + window)
-        return kern
+        return kern.view(tuple(lead) + (cin,) + window)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
-        cout, cin, K, _ = ctx.w_shape
+        *lead, cin, K, _ = ctx.w_shape
+        cout = math.prod(lead)
         # (4, Cout, Cin, K K): each phase's entries of every tap, contiguous
         phases = grad.reshape(cout, cin, 4, -1).permute(2, 0, 1, 3)
         g = phases.gather(3, ctx.inv.view(4, 1, 1, K * K).expand(4, cout, cin, K * K))
         acc = g[0].to(torch.promote_types(grad.dtype, torch.float32))
         for i in range(1, 4):
             acc = acc + g[i]
-        return acc.to(grad.dtype).view(cout, cin, K, K)
+        return acc.to(grad.dtype).view(ctx.w_shape)
 
 
 def phase_kernels(w: torch.Tensor) -> torch.Tensor:
-    """(Cout, Cin, 2, 2, n, n): the four phases' kernels of OIHW `w` (K odd)
+    """(..., Cout, Cin, 2, 2, n, n): the four phases' kernels of OIHW `w`
+    (K odd; leading axes, such as a decoder bank's objects, kept)
     on the common n x n window, each entry the left-to-right sum of its taps
     in the JAX loop's order (a zero tap adds 0.0), in w's dtype, each
     addition rounded to it. Differentiable in `w` (`_PhaseKernels`: the
@@ -168,13 +175,17 @@ def phase_kernel(w: torch.Tensor, p: int, q: int):
 def upsample2x_conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """conv2d(nearest_upsample_2x(x), w, stride 1, SAME) (+ b) without the
     upsampled map: x (B, Cin, H, W), w (Cout, Cin, K, K) with K odd, b (Cout,);
-    returns (B, Cout, 2H, 2W)."""
-    cout, cin, K, _ = w.shape
+    returns (B, Cout, 2H, 2W). A stack w (G, Cout, Cin, K, K), b (G, Cout)
+    convolves G groups of channels, each by its own kernel, in one grouped
+    convolution: x (B, G * Cin, H, W) -> (B, G * Cout, 2H, 2W), group g's
+    channels g * C to (g + 1) * C - 1 on both sides (a decoder bank)."""
+    groups = w.shape[0] if w.dim() == 5 else 1
+    cout, cin, K = w.shape[-4], w.shape[-3], w.shape[-1]
     lo, _ = _window(K)
-    # output channel c * 4 + p * 2 + q is phase (p, q) of channel c: pixel_shuffle's order
-    kern = phase_kernels(w).permute(0, 2, 3, 1, 4, 5).reshape(4 * cout, cin, 1 - 2 * lo, 1 - 2 * lo)
-    bias = None if b is None else b.repeat_interleave(4)
-    return F.pixel_shuffle(conv2d(x, kern, bias, padding=-lo), 2)
+    # output channel (g * Cout + c) * 4 + p * 2 + q is phase (p, q) of group g's channel c: pixel_shuffle's order
+    kern = phase_kernels(w).movedim(-5, -3).reshape(groups * 4 * cout, cin, 1 - 2 * lo, 1 - 2 * lo)
+    bias = None if b is None else b.reshape(-1).repeat_interleave(4)
+    return F.pixel_shuffle(conv2d(x, kern, bias, padding=-lo, groups=groups), 2)
 
 
 def upsample2x_conv_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -3,6 +3,8 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
 from .mesh import Mesh, compute_vertex_normals
@@ -75,7 +77,7 @@ def make_icosphere(subdivisions: int = 2, radius: float = 60.0, colored: bool = 
 
 
 def make_textured_asymmetric(
-    subdivisions: int = 5, radius: float = 60.0
+    subdivisions: int = 5, radius: float = 60.0, seed: Optional[int] = None
 ) -> Mesh:
     """Asymmetric, high-frequency-textured object for quality evaluation —
     the regime of the paper's real objects (textured, orientation-
@@ -84,17 +86,24 @@ def make_textured_asymmetric(
     Geometry: icosphere deformed by smooth low-order lobes with no symmetry
     plane. Texture: per-vertex 3D checker with direction-dependent palette
     plus a bright marker patch on one octant (kills any residual ambiguity).
-    Fully deterministic.
+    Fully deterministic. With `seed`, the lobes' frequencies and phases
+    are drawn from np.random.RandomState(seed) around the default ones, so
+    each seed gives another object of the same kind (one mesh a seed, as
+    for the objects of a multi-path model); without it, the default mesh.
     """
     base = make_icosphere(subdivisions, 1.0, colored=False)
     d = base.vertices / np.linalg.norm(base.vertices, axis=1, keepdims=True)
     x, y, z = d[:, 0], d[:, 1], d[:, 2]
 
+    # frequencies and phases of the lobes, each drawn around its default with a seed
+    f = np.array([2.1, 0.5, 1.7, -0.3, 3.3, 1.0, 1.3, 0.7, 2.7, 2.0])
+    if seed is not None:
+        f = f + np.random.RandomState(seed).uniform(-0.8, 0.8, f.shape)
     # smooth asymmetric radial field, strictly positive
     r = 1.0 + (
-        0.28 * np.sin(2.1 * x + 0.5) * np.cos(1.7 * y - 0.3)
-        + 0.22 * np.sin(3.3 * z + 1.0) * np.cos(1.3 * x + 0.7)
-        + 0.15 * np.sin(2.7 * y + 2.0)
+        0.28 * np.sin(f[0] * x + f[1]) * np.cos(f[2] * y + f[3])
+        + 0.22 * np.sin(f[4] * z + f[5]) * np.cos(f[6] * x + f[7])
+        + 0.15 * np.sin(f[8] * y + f[9])
     )
     v = d * (radius * r)[:, None]
     f = base.faces

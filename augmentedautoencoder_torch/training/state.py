@@ -31,6 +31,8 @@ from typing import Dict, Iterable, Tuple
 import torch
 from torch import nn
 
+from ..models.decoder import DecoderBank
+
 # name -> (slots, their initial value); the update is in OptaxOptimizer.step
 _OPTIMIZERS: Dict[str, Tuple[Tuple[str, ...], float]] = {
     "adam": (("mu", "nu"), 0.0),
@@ -149,9 +151,21 @@ def init_parameters_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every parameter as Flax initializes the JAX model, from
     `generator` alone: conv and dense kernels lecun-normal over their fan
     in, biases 0, BatchNorm scale 1 and statistics (0, 1), and the VAE's
-    `latent_sigma` kernel 0 (reference encoder.py:70-79)."""
+    `latent_sigma` kernel 0 (reference encoder.py:70-79). A decoder bank's
+    objects are drawn each as one Flax decoder, at one decoder's fan in
+    (not the stack's), from a stream of its own whose seed `generator`
+    draws, in object order."""
     for name, mod in model.named_modules():
-        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+        if isinstance(mod, DecoderBank):
+            seeds = torch.randint(0, 2**62, (mod.n_objects,), generator=generator).tolist()
+            layers = [mod.dense, *mod.convs, mod.reconstruction]
+            for o, seed in enumerate(seeds):
+                stream = torch.Generator().manual_seed(seed)
+                for layer in layers:
+                    _lecun_normal_(layer.weight[o], layer.weight[o][0].numel(), stream)
+            for layer in layers:
+                layer.bias.zero_()
+        elif isinstance(mod, (nn.Conv2d, nn.Linear)):
             fan_in = mod.weight[0].numel()
             if name.endswith("latent_sigma"):
                 mod.weight.zero_()

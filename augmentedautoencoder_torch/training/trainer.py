@@ -94,6 +94,11 @@ def make_train_step(
     ones to the global batch's)."""
     shard = (0, 1)
     if mesh is not None:
+        if getattr(model, "n_objects", 1) > 1:
+            raise ValueError(
+                f"a multi-path model ({model.n_objects} objects) trains on one device for now: "
+                "run it without torchrun or a process group"
+            )
         shard = (axis_index(mesh, DATA_AXIS), axis_size(mesh, DATA_AXIS))
         if batch_size % shard[1]:
             raise ValueError(f"BATCH_SIZE {batch_size} does not divide over {shard[1]} data ranks")
